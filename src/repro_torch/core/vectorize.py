@@ -21,16 +21,23 @@ in how the two frameworks capture a program are absorbed here:
   are composed into one multi-dim slice before the page range is aliased.
 * Negative slice starts and the ``2**63 - 1`` "to the end" sentinel are
   normalised to the tensor's extent.
-* A Python scalar argument, or a captured tensor of <= 8 elements, is a
-  literal (no pages), like a jaxpr ``Literal``.
+* A Python scalar argument, a ``scalar_tensor``, or a captured tensor of
+  <= 8 elements is a literal (no pages), like a jaxpr ``Literal``.
+* ``x[i]`` (``aten.select.int``) is JAX's ``slice`` + ``squeeze``: it
+  aliases the selected pages.
+* ATen records no node for NumPy rank promotion (``[r, c] ^ [c]``); where
+  ``jnp`` would emit a ``broadcast_in_dim`` to ``[1, c]`` before the op,
+  the walk emits that ``broadcast`` itself.
+* ``jnp.where``, ``jnp.take``, ``%`` and ``jnp.cumsum`` reach the jaxpr
+  walk as a nested ``jit`` that it does not enter; their ATen counterparts
+  (:data:`_NESTED_JIT`) take the same CONTROL region, pages named ``jit``.
 
 Partial vectorization (strip-mining, §4.3.1): array tails that do not fill
 a page become shorter-``vlen`` instructions.  Ops with no vector lowering
-(data-dependent control flow, sorts, unknown-trip-count loops — the §7
-limitations — and, until later slices of the port, ``while_loop``,
-gather/scatter and matrix products) are emitted as ``CONTROL``
-instructions pinned to ISP, mirroring the paper's treatment of
-control-intensive regions.
+(data-dependent control flow such as ``while_loop``, sorts, unknown-trip-
+count loops — the §7 limitations — and, until later slices of the port,
+matrix products) are emitted as ``CONTROL`` instructions pinned to ISP,
+mirroring the paper's treatment of control-intensive regions.
 """
 from __future__ import annotations
 
@@ -94,13 +101,13 @@ _FREE = {"reshape", "squeeze", "expand_dims", "stop_gradient", "copy_p"}
 _ATEN_TO_PRIM = {
     # elementwise
     "add": "add", "sub": "sub", "rsub": "sub", "mul": "mul", "div": "div",
-    "remainder": "rem", "fmod": "rem", "pow": "pow", "neg": "neg",
+    "fmod": "rem", "pow": "pow", "neg": "neg",
     "sign": "sign", "abs": "abs", "exp": "exp", "exp2": "exp2",
     "log": "log", "log1p": "log1p", "expm1": "expm1", "tanh": "tanh",
     "sigmoid": "logistic", "sqrt": "sqrt", "rsqrt": "rsqrt", "sin": "sin",
     "cos": "cos", "erf": "erf", "erfinv": "erf_inv",
     "maximum": "max", "minimum": "min", "clamp_min": "max",
-    "clamp_max": "min", "clamp": "clamp", "where": "select_n",
+    "clamp_max": "min", "clamp": "clamp",
     "bitwise_and": "and", "logical_and": "and", "bitwise_or": "or",
     "logical_or": "or", "bitwise_xor": "xor", "logical_xor": "xor",
     "bitwise_not": "not", "logical_not": "not",
@@ -129,8 +136,15 @@ _ATEN_TO_PRIM = {
     "squeeze": "squeeze", "unsqueeze": "expand_dims",
     "detach": "stop_gradient", "alias": "copy_p",
     # slices
-    "slice": "slice",
+    "slice": "slice", "select": "select",
+    # higher-order ops (the CONTROL fallback)
+    "while_loop": "while",
 }
+
+# ATen ops whose ``jnp`` counterpart jax 0.9 wraps in a nested ``jit``
+# (``_where``, ``_take``, ``remainder``, ``cumsum``): the jaxpr walk does
+# not enter it, so it is one CONTROL region whose pages are named ``jit``.
+_NESTED_JIT = {"where", "index", "take", "remainder", "cumsum"}
 
 # aten.max/min overloads: ``other`` is the binary elementwise op, ``default``
 # the full reduction (``dim`` returns values+indices: CONTROL fallback).
@@ -179,11 +193,13 @@ def _names(target) -> Tuple[str, str]:
     packet = getattr(target, "overloadpacket", None)
     if packet is None:                          # higher-order op, Python fn
         name = getattr(target, "__name__", str(target))
-        return name, name
+        return name, _ATEN_TO_PRIM.get(name, name)
     name = packet.__name__
     key = (name, getattr(target, "_overloadname", ""))
     if key in _OVERLOAD_PRIM:
         return name, _OVERLOAD_PRIM[key]
+    if name in _NESTED_JIT:
+        return name, "jit"
     return name, _ATEN_TO_PRIM.get(name, name)
 
 
@@ -280,6 +296,10 @@ class _Vectorizer:
             env[node] = self.pages_for(env, args[0])
             return
 
+        if aten == "scalar_tensor":            # a Python scalar made 0-d
+            env[node] = None
+            return
+
         if prim in _FREE:
             src = self.pages_for(env, args[0])
             out_aval = self.aval(node)
@@ -296,10 +316,12 @@ class _Vectorizer:
             self._slice(node, env)
             return
 
+        if prim == "select":
+            self._select(node, env)
+            return
+
         if prim in _ELEMENTWISE:
-            ins = [self.pages_for(env, a) for a in args]
-            if prim == "select_n":             # where(c, x, y) = select_n(c, y, x)
-                ins = [ins[0], ins[2], ins[1]]
+            ins = self._promote_ranks(node, env)
             out = self._alloc(self.aval(node), prim)
             self.emit_map(_ELEMENTWISE[prim], ins, out, self.aval(node), prim)
             env[node] = out
@@ -329,12 +351,42 @@ class _Vectorizer:
             env[node] = out
             return
 
-        # Unknown op (and, in this slice, loops, gathers, matmuls):
-        # conservatively non-vectorizable (paper §7).
+        # Unknown op, loops, nested-jit ops (and, until a later slice,
+        # matmuls): conservatively non-vectorizable (paper §7).
         self._fallback_control(node, env, prim)
 
+    def _promote_ranks(self, node, env: Dict) -> List[Optional[List[int]]]:
+        """Operand pages of an elementwise op after NumPy rank promotion.
+
+        ``jnp`` (``promote_shapes``) brings operands of two or more
+        distinct non-scalar ranks to the result rank with a
+        ``broadcast_in_dim`` that prepends 1-dims; it is emitted here, in
+        operand order, since ATen broadcasts inside the op."""
+        args = node.args
+        ranks = [getattr(a.meta.get("val"), "ndim", 0)
+                 if isinstance(a, torch.fx.Node) else 0 for a in args]
+        ins = [self.pages_for(env, a) for a in args]
+        if len({r for r in ranks if r}) < 2:
+            return ins
+        rank = max(ranks)
+        for k, (a, r) in enumerate(zip(args, ranks)):
+            if 0 < r < rank and ins[k] is not None:
+                aval = self.aval(a)
+                out = self._alloc(aval, "broadcast_in_dim")
+                self.emit_map(_COPYLIKE["broadcast_in_dim"], [ins[k]], out,
+                              aval, "broadcast_in_dim")
+                ins[k] = out
+        return ins
+
     def _fallback_control(self, node, env: Dict, prim: str) -> None:
-        ins = [self.pages_for(env, a) for a in pytree.tree_leaves(node.args)]
+        if prim == "while":
+            # JAX's ``while`` reads (cond consts, body consts, carries); the
+            # HOP is (cond, body, carries, additional inputs), the lifted
+            # closures of cond and body last.  The sub-graphs are not walked.
+            operands = list(node.args[3]) + list(node.args[2])
+        else:
+            operands = pytree.tree_leaves(node.args)
+        ins = [self.pages_for(env, a) for a in operands]
         val = node.meta.get("val")
         vals = val if isinstance(val, (list, tuple)) else [val]
         outs = []
@@ -377,10 +429,12 @@ class _Vectorizer:
                 starts=zeros[:dim] + (start,) + zeros[dim + 1:],
                 limits=shape[:dim] + (end,) + shape[dim + 1:], last_dim=dim)
         self.views[node] = view
+        env[node] = self._slice_pages(view)
 
+    def _slice_pages(self, view: _SliceView) -> Optional[List[int]]:
+        """The base pages that hold the bytes of a multi-dim slice."""
         if view.base_pages is None:
-            env[node] = None
-            return
+            return None
         eb = self._ebytes(view.base_aval)
         acc, flat_start, flat_last = 1, 0, 0
         for d in range(len(view.base_shape) - 1, -1, -1):
@@ -390,7 +444,24 @@ class _Vectorizer:
         first = (flat_start * eb) // self.page_bytes
         last = (flat_last * eb) // self.page_bytes
         src_pages = view.base_pages
-        env[node] = src_pages[first:last + 1] or src_pages[-1:]
+        return src_pages[first:last + 1] or src_pages[-1:]
+
+    def _select(self, node, env: Dict) -> None:
+        """``x[i]`` along ``dim``: JAX's ``slice`` of ``[i, i + 1)`` then a
+        ``squeeze``, both aliasing (no data movement)."""
+        src, dim, index = node.args
+        shape = tuple(src.meta["val"].shape)
+        dim %= len(shape)
+        index %= shape[dim]
+        zeros = (0,) * len(shape)
+        pages = self._slice_pages(_SliceView(
+            base_pages=self.pages_for(env, src), base_shape=shape,
+            base_aval=self.aval(src),
+            starts=zeros[:dim] + (index,) + zeros[dim + 1:],
+            limits=shape[:dim] + (index + 1,) + shape[dim + 1:],
+            last_dim=dim))
+        env[node] = (None if pages is None
+                     else pages[:self._npages(self.aval(node))])
 
     def _reduction(self, node, env: Dict, op: str) -> None:
         src = self.pages_for(env, node.args[0])

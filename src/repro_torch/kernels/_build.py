@@ -34,6 +34,9 @@ SIGNATURES = {
     "ndp_bitserial_mul_i8": (_P, _P, _P, _N, _P),
     "ndp_bitserial_mul_i32": (_P, _P, _P, _N, _P),
     "ndp_shift_add_mul_i32": (_P, _P, _P, _N, ctypes.c_int, _P),
+    "ndp_mws_i8": (_P, _P, _N, _N, ctypes.c_int, _P),
+    "ndp_mws_i32": (_P, _P, _N, _N, ctypes.c_int, _P),
+    "ndp_search_i32": (_P, _P, _P, _N, ctypes.c_int, _P),
 }
 
 
@@ -94,22 +97,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_pair(a, b, dtypes, name: str) -> None:
-    """Raise unless ``a``/``b`` are what the kernel ``name`` takes: CUDA
-    tensors of one shape and one dtype from ``dtypes``, contiguous."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError(f"{name}: expected CUDA tensors, got {a.device} "
-                         f"and {b.device}")
-    if a.device != b.device:
-        raise ValueError(f"{name}: operands on {a.device} and {b.device}")
-    if a.dtype != b.dtype or a.dtype not in dtypes:
+def check_operands(name: str, dtypes, *tensors) -> None:
+    """Raise unless ``tensors`` are what the kernel ``name`` takes:
+    contiguous CUDA tensors on one device, of one dtype from ``dtypes``."""
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: operands on "
+                         f"{[str(t.device) for t in tensors]}")
+    if len({t.dtype for t in tensors}) != 1 or tensors[0].dtype not in dtypes:
         raise TypeError(f"{name}: expected one dtype of {dtypes}, got "
-                        f"{a.dtype} and {b.dtype}")
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def check_pair(a, b, dtypes, name: str) -> None:
+    """:func:`check_operands` for two operands of one shape."""
+    check_operands(name, dtypes, a, b)
     if a.shape != b.shape:
         raise ValueError(f"{name}: shapes differ, {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"{name}: operands must be contiguous")
 
 
 def call(fn_name: str, *args) -> None:

@@ -6,6 +6,13 @@
 //   shift_add_mul        — IFP (Ares-Flash) latch shift-and-add multiply;
 //                          replaces repro/kernels/shift_add.py
 //                          _shift_add_kernel.
+//   mws                  — IFP (Flash-Cosmos) multi-wordline sensing: a
+//                          bulk and/or/xor/nand/nor over n_ops stacked
+//                          pages; replaces repro/kernels/mws.py
+//                          _mws_kernel.
+//   search               — IFP match line: XNOR of every record word with
+//                          the query, wired-AND over the record; replaces
+//                          repro/kernels/search.py _search_kernel.
 //
 // Each kernel keeps the gate-level loop of the TPU kernel, because that
 // loop *is* the model of the in-memory circuit: the adder is built only
@@ -114,6 +121,58 @@ __global__ void shift_add_mul_kernel(const U* __restrict__ a,
   }
 }
 
+// The op codes of ndp_mws_*; the order of repro_torch/kernels/mws.py OPS.
+enum MwsOp : int { kAnd = 0, kOr = 1, kXor = 2, kNand = 3, kNor = 4 };
+
+// Flash-Cosmos sense of n_ops wordlines: element i of every operand page
+// (stack[k * n + i]) is read once and folded into a register, as the
+// wired-AND (or the OR across blocks) folds the cells of a NAND string in
+// one array sense; nand/nor invert the sensed value.  For each k the warp
+// reads 32 neighbouring elements of page k.
+template <typename U, int kOp>
+__global__ void mws_kernel(const U* __restrict__ stack, U* __restrict__ out,
+                           long long n_ops, long long n) {
+  constexpr bool kIsAnd = kOp == kAnd || kOp == kNand;
+  constexpr bool kIsOr = kOp == kOr || kOp == kNor;
+  constexpr bool kNegate = kOp == kNand || kOp == kNor;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    U acc = kIsAnd ? static_cast<U>(~U(0)) : U(0);
+    for (long long k = 0; k < n_ops; ++k) {
+      const U page = stack[k * n + i];
+      if (kIsAnd) {
+        acc = static_cast<U>(acc & page);
+      } else if (kIsOr) {
+        acc = static_cast<U>(acc | page);
+      } else {
+        acc = static_cast<U>(acc ^ page);
+      }
+    }
+    out[i] = kNegate ? static_cast<U>(~acc) : acc;
+  }
+}
+
+// One thread per record of wpr words (records are contiguous: record r
+// starts at word r * wpr of the flattened [rows, words] stack).  The match
+// line starts charged (all ones) and every word's XNOR with the query is
+// ANDed onto it; the record matches iff it is still all ones.
+__global__ void search_kernel(const uint32_t* __restrict__ stack,
+                              const uint32_t* __restrict__ query,
+                              unsigned char* __restrict__ out,
+                              long long n_recs, int wpr) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       r < n_recs; r += stride) {
+    const uint32_t* rec = stack + r * wpr;
+    uint32_t line = ~0u;
+    for (int k = 0; k < wpr; ++k) line &= ~(rec[k] ^ query[k]);
+    out[r] = line == ~0u ? 1 : 0;
+  }
+}
+
 inline unsigned int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -155,9 +214,68 @@ cudaError_t launch_shift_add(const void* a, const void* b, void* out,
   return cudaGetLastError();
 }
 
+template <typename U>
+cudaError_t launch_mws(const void* stack, void* out, long long n_ops,
+                       long long n, int op, void* stream) {
+  if (n_ops < 0) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  const auto* s = static_cast<const U*>(stack);
+  auto* o = static_cast<U*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kAnd:
+      mws_kernel<U, kAnd><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      break;
+    case kOr:
+      mws_kernel<U, kOr><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      break;
+    case kXor:
+      mws_kernel<U, kXor><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      break;
+    case kNand:
+      mws_kernel<U, kNand><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      break;
+    case kNor:
+      mws_kernel<U, kNor><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_search(const void* stack, const void* query, void* out,
+                          long long n_recs, int wpr, void* stream) {
+  if (wpr < 1) return cudaErrorInvalidValue;
+  if (n_recs <= 0) return cudaSuccess;
+  search_kernel<<<grid_for(n_recs), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(stack), static_cast<const uint32_t*>(query),
+      static_cast<unsigned char*>(out), n_recs, wpr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int ndp_mws_i8(const void* stack, void* out, long long n_ops, long long n,
+               int op, void* stream) {
+  return static_cast<int>(
+      launch_mws<uint8_t>(stack, out, n_ops, n, op, stream));
+}
+
+int ndp_mws_i32(const void* stack, void* out, long long n_ops, long long n,
+                int op, void* stream) {
+  return static_cast<int>(
+      launch_mws<uint32_t>(stack, out, n_ops, n, op, stream));
+}
+
+int ndp_search_i32(const void* stack, const void* query, void* out,
+                   long long n_recs, int wpr, void* stream) {
+  return static_cast<int>(
+      launch_search(stack, query, out, n_recs, wpr, stream));
+}
 
 int ndp_bitserial_add_i8(const void* a, const void* b, void* out,
                          long long n, void* stream) {

@@ -2,7 +2,9 @@
 
 Keeps the JAX package's ``repro.kernels.ops`` contract: 2-D ``[rows,
 cols]`` operands of one shape, int8 or int32 (int32 for
-``shift_add_mul``), any rows and cols — there is no tiling to pad to.
+``shift_add_mul``); a ``[n_ops, rows, cols]`` int8 or int32 stack for
+``mws_bitwise``; an int32 ``[rows, words]`` stack and ``[wpr]`` query
+for ``search_pages``.  Any rows and cols — there is no tiling to pad to.
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor is
 computed by the kernel's plain PyTorch version (:mod:`.ref`); a CUDA
@@ -16,7 +18,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import bitserial as _bitserial
+from repro_torch.kernels import mws as _mws
 from repro_torch.kernels import ref
+from repro_torch.kernels import search as _search
 from repro_torch.kernels import shift_add as _shift_add
 
 
@@ -54,14 +58,52 @@ def shift_add_mul(a: torch.Tensor, b: torch.Tensor,
     return ref.shift_add_mul_plain(a, b, bits)
 
 
+def mws_bitwise(stack: torch.Tensor, op: str = "and") -> torch.Tensor:
+    """Bulk bitwise reduce of stacked pages (Flash-Cosmos MWS)."""
+    if stack.ndim != 3:
+        raise ValueError(f"mws_bitwise: expected [n_ops, rows, cols], got "
+                         f"{tuple(stack.shape)}")
+    if stack.dtype not in _mws.DTYPES:
+        raise TypeError(f"mws_bitwise: expected one dtype of {_mws.DTYPES}, "
+                        f"got {stack.dtype}")
+    if op not in _mws.OPS:
+        raise ValueError(f"mws_bitwise: op {op!r} not one of {_mws.OPS}")
+    if stack.is_cuda:
+        return _mws.mws_bitwise(stack.contiguous(), op)
+    return ref.mws_plain(stack, op)
+
+
+def search_pages(stack: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """In-flash exact-match search (§7 extensibility kernel)."""
+    if stack.ndim != 2 or query.ndim != 1:
+        raise ValueError(f"search_pages: expected [rows, words] and [wpr], "
+                         f"got {tuple(stack.shape)} and {tuple(query.shape)}")
+    if stack.dtype != torch.int32 or query.dtype != torch.int32:
+        raise TypeError(f"search_pages: expected int32, got {stack.dtype} "
+                        f"and {query.dtype}")
+    if query.shape[0] < 1 or stack.shape[1] % query.shape[0]:
+        raise ValueError(f"search_pages: {stack.shape[1]} words per row do "
+                         f"not hold records of {query.shape[0]} words")
+    if stack.device != query.device:
+        raise ValueError(f"search_pages: operands on {stack.device} and "
+                         f"{query.device}")
+    if stack.is_cuda:
+        return _search.search_pages(stack.contiguous(), query.contiguous())
+    return ref.search_plain(stack, query)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"bitserial_add": _bitserial.ADD_LAUNCHES,
             "bitserial_mul": _bitserial.MUL_LAUNCHES,
-            "shift_add_mul": _shift_add.LAUNCHES}
+            "shift_add_mul": _shift_add.LAUNCHES,
+            "mws_bitwise": _mws.LAUNCHES,
+            "search_pages": _search.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _bitserial.ADD_LAUNCHES = 0
     _bitserial.MUL_LAUNCHES = 0
     _shift_add.LAUNCHES = 0
+    _mws.LAUNCHES = 0
+    _search.LAUNCHES = 0

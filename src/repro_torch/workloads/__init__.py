@@ -4,8 +4,8 @@ Each workload module exposes ``make_fn(scale)`` (the PyTorch program),
 ``make_inputs(scale, seed, device)`` (its inputs, drawn from numpy's
 ``default_rng(seed)`` exactly as the JAX package draws them), ``SIM``
 (simulator pressure knobs) and ``META`` (the paper's Table 3
-characterization for comparison).  This slice of the port carries
-jacobi1d; the other five follow in later slices.
+characterization for comparison).  The port carries aes, xor_filter,
+heat3d and jacobi1d; llama2_infer and llm_train follow in a later slice.
 
 ``get_trace`` runs Conduit's compile-time preprocessing on the workload;
 ``sim_config_for`` derives the per-workload capacity pressure (the paper
@@ -26,9 +26,12 @@ from repro_torch.core.trace import Trace
 from repro_torch.core.vectorize import vectorize
 from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
 from repro_torch.sim.machine import SimConfig
-from repro_torch.workloads import jacobi1d
+from repro_torch.workloads import aes, heat3d, jacobi1d, xor_filter
 
 WORKLOADS = {
+    "aes": aes,
+    "xor_filter": xor_filter,
+    "heat3d": heat3d,
     "jacobi1d": jacobi1d,
 }
 

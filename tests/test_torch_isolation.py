@@ -44,9 +44,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=[str(p.relative_to(PORT)) for p in PORT_FILES])
-def test_no_jax_or_repro_import_in_source(path):
+def _assert_no_jax_or_repro_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -59,6 +57,17 @@ def test_no_jax_or_repro_import_in_source(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (
                 f"{path.name}:{node.lineno} imports {mod}")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(PORT)) for p in PORT_FILES])
+def test_no_jax_or_repro_import_in_source(path):
+    _assert_no_jax_or_repro_import(path)
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    """The smoke runs where jax is absent; it imports only the port."""
+    _assert_no_jax_or_repro_import(PORT.parents[1] / "chip_smoke.py")
 
 
 @pytest.mark.parametrize("entry", ["get_trace", "run_numeric", "make_inputs"])

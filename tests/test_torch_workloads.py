@@ -1,5 +1,5 @@
-"""The port's jacobi1d workload against the JAX package's: same inputs,
-bit-equal numeric run, same simulated results from its own trace."""
+"""The port's workloads against the JAX package's: same tables and inputs,
+bit-equal numeric runs, same simulated results from their own traces."""
 import dataclasses
 
 import numpy as np
@@ -10,27 +10,36 @@ torch = pytest.importorskip("torch")
 import _golden  # noqa: E402
 from repro import workloads as repro_workloads  # noqa: E402
 from repro.sim import simulate as repro_simulate  # noqa: E402
-from repro.workloads import jacobi1d as repro_jacobi1d  # noqa: E402
 from repro_torch import workloads  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
-from repro_torch.workloads import jacobi1d  # noqa: E402
 
+NAMES = ("aes", "xor_filter", "heat3d", "jacobi1d")
 POLICIES = ("cpu", "isp", "pud", "dm", "bw", "conduit", "ideal")
 SCALES = ("tiny", "paper")
 
 
-def test_tables_match_the_reference():
-    assert jacobi1d.SCALES == repro_jacobi1d.SCALES
-    assert jacobi1d.SIM == repro_jacobi1d.SIM
-    assert jacobi1d.META == repro_jacobi1d.META
-    assert set(workloads.WORKLOADS) == {"jacobi1d"}
+def _outputs(result):
+    return result if isinstance(result, tuple) else (result,)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_tables_match_the_reference(name):
+    got, want = workloads.WORKLOADS[name], repro_workloads.WORKLOADS[name]
+    assert got.SCALES == want.SCALES
+    assert got.SIM == want.SIM
+    assert got.META == want.META
+
+
+def test_the_port_carries_four_workloads():
+    assert set(workloads.WORKLOADS) == set(NAMES)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("scale", SCALES)
-def test_make_inputs_equal_the_reference(scale, seed):
-    got = workloads.make_inputs("jacobi1d", scale, seed=seed, device="cpu")
-    want = repro_jacobi1d.make_inputs(scale, seed=seed)
+@pytest.mark.parametrize("name", NAMES)
+def test_make_inputs_equal_the_reference(name, scale, seed):
+    got = workloads.make_inputs(name, scale, seed=seed, device="cpu")
+    want = repro_workloads.WORKLOADS[name].make_inputs(scale, seed=seed)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
@@ -38,28 +47,30 @@ def test_make_inputs_equal_the_reference(scale, seed):
 
 
 @pytest.mark.parametrize("scale", SCALES)
-def test_run_numeric_is_bit_equal(scale):
-    got = workloads.run_numeric("jacobi1d", scale, device="cpu")
-    want = np.asarray(repro_workloads.run_numeric("jacobi1d", scale))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)   # int32 wraps alike
+@pytest.mark.parametrize("name", NAMES)
+def test_run_numeric_is_bit_equal(name, scale):
+    got = _outputs(workloads.run_numeric(name, scale, device="cpu"))
+    want = _outputs(repro_workloads.run_numeric(name, scale))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))  # wraps alike
 
 
 @pytest.mark.parametrize("policy", POLICIES)
-def test_own_trace_simulates_like_repro(policy):
-    got = simulate(workloads.get_trace("jacobi1d", "tiny", device="cpu"),
-                   policy)
-    want = repro_simulate(repro_workloads.get_trace("jacobi1d", "tiny"),
-                          policy)
+@pytest.mark.parametrize("name", NAMES)
+def test_own_trace_simulates_like_repro(name, policy):
+    got = simulate(workloads.get_trace(name, "tiny", device="cpu"), policy)
+    want = repro_simulate(repro_workloads.get_trace(name, "tiny"), policy)
     assert _golden.digest_sim(got) == _golden.digest_sim(want)
 
 
 @pytest.mark.parametrize("pressure", [0.0, 0.5])
-def test_sim_config_for_matches_the_reference(pressure):
+@pytest.mark.parametrize("name", NAMES)
+def test_sim_config_for_matches_the_reference(name, pressure):
     got = workloads.sim_config_for(
-        "jacobi1d", workloads.get_trace("jacobi1d", "tiny", device="cpu"),
+        name, workloads.get_trace(name, "tiny", device="cpu"),
         pressure=pressure)
     want = repro_workloads.sim_config_for(
-        "jacobi1d", repro_workloads.get_trace("jacobi1d", "tiny"),
-        pressure=pressure)
+        name, repro_workloads.get_trace(name, "tiny"), pressure=pressure)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
