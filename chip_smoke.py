@@ -13,11 +13,11 @@ last line:
    with CUDA-event times of the kernel, the plain version and the one
    PyTorch call that computes the same function, beside the card's least
    time for the work;
-4. pipeline — jacobi1d, aes, xor_filter and heat3d at paper scale through
-   the package's entry points: numeric run on the card (its outputs'
-   digest must be the JAX package's), trace, Table 3 row, ``simulate``
-   under every policy (the conduit makespan must match the JAX package's
-   to the bit);
+4. pipeline — jacobi1d, aes, xor_filter, heat3d and llama2_infer at paper
+   scale through the package's entry points: numeric run on the card (its
+   outputs' digest must be the JAX package's; fp32 matmuls without TF32),
+   trace, Table 3 row, ``simulate`` under every policy (the conduit
+   makespan must match the JAX package's to the bit);
 5. replay — the offloaded ops again on the card through the kernels: the
    jacobi1d sweep (adds through the PuD bit-serial adder, x85 through the
    IFP shift-add multiplier, then through the bit-serial multiplier); the
@@ -25,10 +25,12 @@ last line:
    kernel; the xor_filter query fold and masks through MWS; heat3d's adds
    through the bit-serial adder and its x2/x41 through the shift-add
    multiplier; a ``search`` instruction, which the conduit policy sends to
-   IFP, through the match-line kernel on xor_filter's built table.  Each
-   must equal the numeric run (or, for search, the plain version) bit for
-   bit, and the launch counters, zeroed before each replay, must show the
-   kernels ran.
+   IFP, through the match-line kernel on xor_filter's built table;
+   llama2_infer's prefill and decode with every 2-D ``x @ W`` in the §5.4
+   INT8 lanes (per-tensor symmetric quantization, the INT8 GEMM,
+   dequantization).  Each must equal the numeric run (or, for search and
+   the GEMMs, the plain version) bit for bit, and the launch counters,
+   zeroed before each replay, must show the kernels ran.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -37,7 +39,9 @@ package beside this script, it fails and prints no result.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import math
 import os
 import pathlib
 import re
@@ -48,6 +52,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -58,9 +63,9 @@ from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
-from repro_torch.workloads import (WORKLOADS, get_trace,  # noqa: E402
-                                   jacobi1d, make_inputs, run_numeric,
-                                   xor_filter)
+from repro_torch.workloads import (WORKLOADS, _llama,  # noqa: E402
+                                   get_trace, jacobi1d, llama2_infer,
+                                   make_inputs, run_numeric, xor_filter)
 
 # the H100 SXM's HBM3 rate (NVIDIA data sheet); ops peaks are read off the
 # card itself in phase 1
@@ -69,12 +74,22 @@ HBM_BYTES_PER_S = 3.35e12
 # Guide, arithmetic instruction throughput: 32-bit integer add, shift,
 # and bitwise logic at 64 results per clock per SM)
 INT32_OPS_PER_CLOCK_PER_SM = 64
+# the H100 SXM's dense INT8 tensor-core peak (NVIDIA data sheet), at the
+# 700 W power limit
+INT8_TENSOR_OPS_PER_S = 1.979e15
+L2_BYTES = 50 * 2 ** 20
 
 INT_SHAPES = [(8, 128), (16, 256), (8, 512), (24, 384), (64, 128)]
 PAGE_SHAPE = (160, 4096)           # jacobi1d paper: one 16 KiB page a row
 MWS_OPS = ("and", "or", "xor", "nand", "nor")
 POLICIES = ("cpu", "isp", "pud", "dm", "bw", "conduit", "ideal")
 SEARCH_WPR = 4                     # a 16-byte record in the search replay
+# INT8 GEMM cases (M, K, N): the tests/test_kernels.py grid, shapes that
+# divide nothing, and all -128 operands at K = 4096 and at the K where the
+# int32 sum (K * 2**14) wraps
+MATMUL_SHAPES = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160),
+                 (13, 37, 29), (1, 1, 1)]
+MATMUL_EXTREMES = [(16, 4096, 24), (4, 1 << 17, 8)]
 
 # The JAX package's results at "paper" scale: Table 3 row, conduit
 # makespan, and the digest of ``run_numeric``'s outputs (output_digest).
@@ -105,13 +120,24 @@ REFERENCE = {
         "conduit_makespan_ns": 36017434.409664914,
         "numeric_sha256": "70e3c3dc8cfe244dea5e59161ea6ccbb"
                           "6c8b5672d9ff9c2eb9a457118a87b86f"},
+    "llama2_infer": {
+        "row": {"vectorizable_pct": 99.3, "avg_reuse": 1.7, "low_pct": 0,
+                "medium_pct": 55, "high_pct": 45, "instrs": 15989},
+        "conduit_makespan_ns": 341937142.7739298,
+        "numeric_sha256": "868e385395133e28feda427b671da1f2"
+                          "af73db3a9b821e7aa595adcd0e665ad3"},
 }
+# run_numeric's output dtype where it is not the JAX package's int32: the
+# tokens torch.argmax gives are int64 (jnp.argmax gives int32); the digest
+# reads every output as int32
+OUTPUT_DTYPES = {"llama2_infer": torch.int64}
 
 REPLACES = {"bitserial_add": "src/repro/kernels/bitserial.py:19",
             "bitserial_mul": "src/repro/kernels/bitserial.py:34",
             "shift_add_mul": "src/repro/kernels/shift_add.py:21",
             "mws_bitwise": "src/repro/kernels/mws.py:27",
-            "search_pages": "src/repro/kernels/search.py:24"}
+            "search_pages": "src/repro/kernels/search.py:24",
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:18"}
 
 
 def phase(name: str) -> None:
@@ -147,17 +173,24 @@ def sass_report(lib_path: str, nvcc: str) -> None:
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split()[0]
-        # mangled template args: h uint8, j uint32; Li<k>E the MWS op code
-        kernel = re.search(r"\d+([a-z_]+_kernel)(?:I([hj])(?:Li(\d)E)?E)?",
-                           name)
-        if kernel and kernel.group(2):
-            elem = {"h": "u8", "j": "u32"}[kernel.group(2)]
-            op = (f", {MWS_OPS[int(kernel.group(3))]}"
-                  if kernel.group(3) is not None else "")
-            label = f"{kernel.group(1)}<{elem}{op}>"
-        else:
-            label = kernel.group(1) if kernel else name
+        name = label = chunk.split()[0]
+        # a mangled name spells each identifier as <length><identifier>;
+        # template args follow the kernel's: h uint8, j uint32, Li<k>E the
+        # MWS op code
+        for digits in re.finditer(r"(?=(\d+))", name):
+            end = digits.start() + len(digits.group(1))
+            ident = name[end:end + int(digits.group(1))]
+            if not ident.endswith("_kernel"):
+                continue
+            targs = re.match(r"I([hj])(?:Li(\d)E)?E",
+                             name[end + len(ident):])
+            label = ident
+            if targs:
+                elem = {"h": "u8", "j": "u32"}[targs.group(1)]
+                op = (f", {MWS_OPS[int(targs.group(2))]}"
+                      if targs.group(2) is not None else "")
+                label = f"{ident}<{elem}{op}>"
+            break
         instrs = re.findall(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?"
                             r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)
         ops = [op.split(".")[0] for _, op, _ in instrs]
@@ -205,6 +238,7 @@ def rand(rng, shape, dtype):
     lo, hi = ((-128, 128) if dtype == np.int8 else (-2 ** 30, 2 ** 30))
     return torch.from_numpy(
         rng.integers(lo, hi, size=shape, dtype=dtype)).cuda()
+
 
 
 # -- phase 5: the offloaded ops of each workload through the kernels --------
@@ -309,6 +343,68 @@ def replay_search(numeric):
     return got, ref.search_plain(stack, query)
 
 
+def quantize(x):
+    """Per-tensor symmetric INT8 quantization (the §5.4 lanes): int8 values
+    in [-127, 127] and the fp32 scale that maps them back."""
+    scale = x.abs().max().clamp_min(torch.finfo(torch.float32).tiny) / 127
+    return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def replay_llama2_infer(numeric, scale, device):
+    """``infer`` (prefill, then greedy decode) with every 2-D ``x @ W`` in
+    the INT8 lanes: both operands quantized, multiplied by the INT8 GEMM,
+    dequantized.  The two per-head einsums stay fp32.  Each GEMM's output
+    is held against the plain version's on the same operands; the tokens
+    and the logits' distance from the fp32 forward are printed as
+    information."""
+    p = llama2_infer.SCALES[scale]
+    params, tokens, cos, sin, mask = make_inputs("llama2_infer", scale,
+                                                 device=device)
+    got, want = [], []
+
+    def mm(x, w):
+        qx, sx = quantize(x)
+        qw, sw = quantize(w)
+        acc = ops.int8_matmul(qx, qw)
+        got.append(acc.reshape(-1))
+        want.append(ref.int8_matmul_plain(qx, qw).reshape(-1))
+        return acc.float() * (sx * sw)
+
+    def attention(x, layer):
+        seq, d = x.shape
+        heads = p["n_heads"]
+        q, k, v = (mm(x, layer[w]).reshape(seq, heads, d // heads)
+                   .permute(1, 0, 2) for w in ("wq", "wk", "wv"))
+        q, k = _llama.rope(q, cos, sin), _llama.rope(k, cos, sin)
+        scores = torch.einsum("hqd,hkd->hqk", q, k) / math.sqrt(d // heads)
+        probs = torch.softmax(torch.where(mask, scores, -1e9), dim=-1)
+        out = torch.einsum("hqk,hkd->hqd", probs, v)
+        return mm(out.permute(1, 0, 2).reshape(seq, d), layer["wo"])
+
+    def forward(tokens):
+        x = params["emb"][tokens]
+        for layer in params["layers"]:
+            x = x + attention(_llama.rmsnorm(x, layer["ln1"]), layer)
+            h = _llama.rmsnorm(x, layer["ln2"])
+            x = x + mm(torch.nn.functional.silu(mm(h, layer["w1"]))
+                       * mm(h, layer["w3"]), layer["w2"])
+        return mm(_llama.rmsnorm(x, params["lnf"]), params["emb"].T)
+
+    emitted, err = [], 0.0
+    for step in range(1 + p["decode_steps"]):
+        if step:
+            tokens = torch.cat([tokens[1:], nxt[None]])
+        logits = forward(tokens)
+        exact = _llama.forward(params, tokens, cos, sin, mask, p["n_heads"])
+        err = max(err, float((logits - exact).abs().max()))
+        nxt = torch.argmax(logits[-1])
+        emitted.append(int(nxt))
+    print(f"  llama2_infer INT8 lanes: tokens {emitted}, fp32 tokens "
+          f"{numeric['llama2_infer'].tolist()}; largest |logit - fp32 "
+          f"logit| {err!r} (information only)")
+    return torch.cat(got), torch.cat(want)
+
+
 def replay_plan(numeric, scale="paper", device="cuda"):
     """``(label, replay, launches it must make)`` for every replay, given
     the numeric run's outputs by workload."""
@@ -317,6 +413,7 @@ def replay_plan(numeric, scale="paper", device="cuda"):
 
     rounds = WORKLOADS["aes"].SCALES[scale]["rounds"]
     tsteps = WORKLOADS["heat3d"].SCALES[scale]["tsteps"]
+    llama = llama2_infer.SCALES[scale]
     return (
         ("jacobi1d ifp_shift_add",
          lambda: replay_jacobi1d(
@@ -334,6 +431,10 @@ def replay_plan(numeric, scale="paper", device="cuda"):
          counts(bitserial_add=6 * tsteps, shift_add_mul=6 * tsteps)),
         ("search on the built table", lambda: replay_search(numeric),
          counts(search_pages=1)),
+        ("llama2_infer int8 GEMMs",
+         lambda: replay_llama2_infer(numeric, scale, device),
+         counts(int8_matmul=(7 * llama["n_layers"] + 1)
+                * (1 + llama["decode_steps"]))),
     )
 
 
@@ -341,6 +442,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    # fp32 matrix products in full fp32: the token digest is held against
+    # the JAX package's CPU run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. card ----------------------------------------------------------
     phase("card")
@@ -353,8 +458,10 @@ def main() -> int:
     int32_ops_per_s = sms * INT32_OPS_PER_CLOCK_PER_SM * max_sm_mhz * 1e6
     print(f"torch.cuda: {kind} x{count}, {sms} SMs, max SM clock "
           f"{max_sm_mhz:.0f} MHz -> INT32 peak {int32_ops_per_s:.4g} op/s; "
-          f"HBM {HBM_BYTES_PER_S:.4g} B/s; torch {torch.__version__} "
-          f"CUDA {torch.version.cuda}")
+          f"HBM {HBM_BYTES_PER_S:.4g} B/s; INT8 tensor peak "
+          f"{INT8_TENSOR_OPS_PER_S:.4g} op/s; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # -- 2. build ---------------------------------------------------------
     phase("build")
@@ -386,11 +493,24 @@ def main() -> int:
             cases.append(("search_pages", np.int32, (rows, 32), wpr))
     cases += [("bitserial_add", np.int32, PAGE_SHAPE, None),
               ("bitserial_mul", np.int32, PAGE_SHAPE, None)]
+    cases += [("int8_matmul", np.int8, shape, None)
+              for shape in MATMUL_SHAPES]
+    cases += [("int8_matmul", np.int8, shape, "min")
+              for shape in MATMUL_EXTREMES]
 
     def operands(name, dt, shape, arg):
         """The operands of one call: (a, b) for the elementwise kernels, the
         stack for MWS, (stack, query) with the query planted as record 0 of
-        row 3 for search."""
+        row 3 for search, int8 (a[M, K], b[K, N]) for the GEMM (all -128
+        for ``arg == "min"``)."""
+        if name == "int8_matmul":
+            m, k, n = shape
+            if arg == "min":
+                return (torch.full((m, k), -128, dtype=torch.int8,
+                                   device="cuda"),
+                        torch.full((k, n), -128, dtype=torch.int8,
+                                   device="cuda"))
+            return rand(rng, (m, k), np.int8), rand(rng, (k, n), np.int8)
         if name == "mws_bitwise":
             return (rand(rng, shape, dt),)
         if name == "search_pages":
@@ -405,7 +525,8 @@ def main() -> int:
                  "shift_add_mul": lambda a, b, arg:
                      ops.shift_add_mul(a, b, bits=arg),
                  "mws_bitwise": lambda s, arg: ops.mws_bitwise(s, arg),
-                 "search_pages": lambda s, q, arg: ops.search_pages(s, q)}
+                 "search_pages": lambda s, q, arg: ops.search_pages(s, q),
+                 "int8_matmul": lambda a, b, arg: ops.int8_matmul(a, b)}
     plain_fn = {"bitserial_add": lambda a, b, arg:
                     ref.bitserial_add_plain(a, b),
                 "bitserial_mul": lambda a, b, arg:
@@ -413,7 +534,9 @@ def main() -> int:
                 "shift_add_mul": lambda a, b, arg:
                     ref.shift_add_mul_plain(a, b, arg),
                 "mws_bitwise": lambda s, arg: ref.mws_plain(s, arg),
-                "search_pages": lambda s, q, arg: ref.search_plain(s, q)}
+                "search_pages": lambda s, q, arg: ref.search_plain(s, q),
+                "int8_matmul": lambda a, b, arg:
+                    ref.int8_matmul_plain(a, b)}
     for name, dt, shape, arg in cases:
         xs = operands(name, dt, shape, arg)
         got = kernel_fn[name](*xs, arg)
@@ -425,16 +548,25 @@ def main() -> int:
         if name == "search_pages" and not bool(got[3, 0]):
             raise AssertionError(f"search_pages {shape} wpr={arg}: the "
                                  f"planted record was not found")
+        if name == "int8_matmul" and arg == "min":
+            k = shape[1]
+            wrapped = (k * 2 ** 14 + 2 ** 31) % 2 ** 32 - 2 ** 31
+            if not bool((got == wrapped).all()):
+                raise AssertionError(f"int8_matmul {shape} all -128: not "
+                                     f"the int32-wrapped {wrapped}")
     print(f"{len(cases)} cases: every kernel equal to its plain version")
 
     # Timing at the shapes the replays give each kernel (first listed per
     # kernel is its record).  Bound: the least time for the function each
     # kernel computes: its bytes (each input read once, each output
-    # written once) over HBM, or its int ops over the INT32 peak, whichever
-    # is larger.  For the PuD/IFP arithmetic the gate-level loop's own op
-    # count (3W+1, W(6W+5), 5 * bits per element) is printed beside it: it
-    # is the model's method, and the compiler already does less than it
-    # (dead carry rounds are known zero), so it bounds nothing.
+    # written once) over HBM, or its int ops over the INT32 peak (the GEMM:
+    # its 2MNK ops over the INT8 tensor-core peak), whichever is larger.
+    # The GEMM's operands fit in L2 and the timing loop reuses them; its
+    # time with cold operands (cycling through sets of more than twice the
+    # L2) is printed beside it.  For the PuD/IFP arithmetic the gate-level
+    # loop's own op count (3W+1, W(6W+5), 5 * bits per element) is printed
+    # beside it: it is the model's method, and the compiler already does
+    # less than it (dead carry rounds are known zero), so it bounds nothing.
     n = jacobi1d.SCALES["paper"]["n"] - 2
     aes_rows = WORKLOADS["aes"].SCALES["paper"]["n"] // 4096
     keys = xor_filter.SCALES["paper"]["n_keys"]
@@ -443,9 +575,12 @@ def main() -> int:
     w = 32                                       # int32 lanes
     gate_ops = {"bitserial_add": 3 * w + 1, "bitserial_mul": w * (6 * w + 5),
                 "shift_add_mul": 5 * 8}
+    # torch._int_mm: cuBLASLt's INT8 GEMM, K5's yardstick only (the port
+    # never calls it)
     library = {"bitserial_add": lambda a, b, arg: torch.add(a, b),
                "bitserial_mul": lambda a, b, arg: torch.mul(a, b),
-               "shift_add_mul": None}
+               "shift_add_mul": None,
+               "int8_matmul": lambda a, b, arg: torch._int_mm(a, b)}
     mws_library = {"and": torch.bitwise_and, "or": torch.bitwise_or,
                    "xor": torch.bitwise_xor}
     timed = [  # (label, kernel, shape, arg)
@@ -463,6 +598,11 @@ def main() -> int:
         ("xor_filter", "mws_bitwise", (3, 1, keys), "xor"),
         ("xor_filter", "search_pages", (slots // 4096, 4096), SEARCH_WPR),
     ]
+    llama = llama2_infer.SCALES["paper"]
+    seq, d, d_ff = llama["seq"], llama["d"], llama["d_ff"]
+    timed += [("llama2_infer", "int8_matmul", shape, None)
+              for shape in ((seq, d, llama["vocab"]),      # logits, record
+                            (seq, d, d), (seq, d, d_ff), (seq, d_ff, d))]
     clock_hz = max_sm_mhz * 1e6
     records = {}
     for label, name, shape, arg in timed:
@@ -489,6 +629,16 @@ def main() -> int:
             recs = stack.numel() // arg
             nbytes = stack.numel() * 4 + recs
             nops = 2 * stack.numel()             # XNOR and AND per word
+        elif name == "int8_matmul":
+            lib = library[name]
+            m_, k_, n_ = shape
+            nbytes = m_ * k_ + k_ * n_ + 4 * m_ * n_
+            nops = 2 * m_ * n_ * k_
+            sets = itertools.cycle([
+                operands(name, None, shape, arg)
+                for _ in range(-(-2 * L2_BYTES // nbytes) + 1)])
+            cold_ms = time_ms(lambda: kernel_fn[name](*next(sets), arg), 50,
+                              clock_hz)
         else:
             lib = library[name]
             elems = xs[0].numel()
@@ -497,12 +647,15 @@ def main() -> int:
         lib_ms = (time_ms(lambda: lib(*xs, arg), 50, clock_hz)
                   if lib is not None else None)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / int32_ops_per_s * 1e3
+        ops_ms = nops / (INT8_TENSOR_OPS_PER_S if name == "int8_matmul"
+                         else int32_ops_per_s) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         gate = (f"; gate-level ops at INT32 peak "
                 f"{gate_ops[name] * xs[0].numel() / int32_ops_per_s * 1e3:.6f}"
                 if name in gate_ops else "")
+        if name == "int8_matmul":
+            gate = f"; cold operands {cold_ms:.6f}"
         print(f"{name:14s} {label:10s} {str(shape):18s} arg={arg} "
               f"kernel {ms:.6f} ms  plain {plain_ms:.6f} ms  library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms  "
@@ -525,7 +678,7 @@ def main() -> int:
     numeric = {}
     for name, want in REFERENCE.items():
         inputs = make_inputs(name, "paper")
-        if not all(x.is_cuda for x in inputs):
+        if not all(x.is_cuda for x in pytree.tree_leaves(inputs)):
             raise AssertionError(f"{name}: make_inputs did not place the "
                                  f"inputs on the card")
         t0 = time.perf_counter()
@@ -533,7 +686,8 @@ def main() -> int:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         outs = out if isinstance(out, tuple) else (out,)
-        if not all(o.is_cuda and o.dtype == torch.int32 for o in outs):
+        dtype = OUTPUT_DTYPES.get(name, torch.int32)
+        if not all(o.is_cuda and o.dtype == dtype for o in outs):
             raise AssertionError(f"{name}: run_numeric gave "
                                  f"{[(str(o.device), o.dtype) for o in outs]}")
         digest = output_digest([o.cpu().numpy() for o in outs])

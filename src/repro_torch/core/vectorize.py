@@ -28,16 +28,35 @@ in how the two frameworks capture a program are absorbed here:
 * ATen records no node for NumPy rank promotion (``[r, c] ^ [c]``); where
   ``jnp`` would emit a ``broadcast_in_dim`` to ``[1, c]`` before the op,
   the walk emits that ``broadcast`` itself.
-* ``jnp.where``, ``jnp.take``, ``%`` and ``jnp.cumsum`` reach the jaxpr
-  walk as a nested ``jit`` that it does not enter; their ATen counterparts
-  (:data:`_NESTED_JIT`) take the same CONTROL region, pages named ``jit``.
+* ``jnp.where``, ``jnp.take``, ``%``, ``jnp.cumsum`` and ``jax.nn.silu``
+  reach the jaxpr walk as a nested ``jit`` that it does not enter; their
+  ATen counterparts (:data:`_NESTED_JIT`) take the same CONTROL region,
+  pages named ``jit``.
+* ``aten.mm`` / ``aten.bmm`` are ``dot_general``.  ``torch.einsum`` would
+  decompose into ``unsqueeze`` / ``permute`` / ``view`` chains around a
+  ``bmm`` where ``jnp.einsum`` emits one ``dot_general`` and no transpose;
+  during capture a two-operand einsum is kept as one node
+  (:class:`_KeepEinsum`), lowered with the dimension numbers
+  ``jnp.einsum`` gives.  A permute the program writes (``x @ w.T``,
+  ``.permute(1, 0, 2)``) stays a ``transpose``, as in JAX.
+* ``reshape`` of a strided view is ``clone`` + ``_unsafe_view`` in ATen and
+  one ``reshape`` (no data movement) in JAX: such a clone aliases.
+* ``mean(keepdim=True)`` and ``softmax`` are one ATen node each; they emit
+  the sequences ``jnp.mean`` and ``jax.nn.softmax`` record, and every
+  ``keepdim`` reduction the ``broadcast_in_dim`` that ``keepdims`` adds.
+* ``x[i]`` with a negative ``i`` is, in jax 0.9, a run-time index
+  normalisation (``lt``, ``add``, ``select_n``) and a ``dynamic_slice``,
+  which aliases the source from its first page.
+* ``unsqueeze`` (``x[None]``) is a view in ATen and a ``broadcast_in_dim``
+  copy in JAX; ``torch.stack`` is one node, JAX's ``broadcast_in_dim`` of
+  each operand and a ``concatenate``.
 
 Partial vectorization (strip-mining, §4.3.1): array tails that do not fill
 a page become shorter-``vlen`` instructions.  Ops with no vector lowering
 (data-dependent control flow such as ``while_loop``, sorts, unknown-trip-
-count loops — the §7 limitations — and, until later slices of the port,
-matrix products) are emitted as ``CONTROL`` instructions pinned to ISP,
-mirroring the paper's treatment of control-intensive regions.
+count loops — the §7 limitations) are emitted as ``CONTROL`` instructions
+pinned to ISP, mirroring the paper's treatment of control-intensive
+regions.
 """
 from __future__ import annotations
 
@@ -48,9 +67,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
+from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.isa import VectorInstr
+from repro_torch.core.isa import Location, VectorInstr
 from repro_torch.core.mapping import PageTable
 from repro_torch.core.trace import Trace, TraceBudgetExceeded, _compact
 from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
@@ -91,7 +111,7 @@ _COPYLIKE = {
 }
 
 _SHUFFLE = {"transpose": "shuffle", "rev": "shuffle"}
-_FREE = {"reshape", "squeeze", "expand_dims", "stop_gradient", "copy_p"}
+_FREE = {"reshape", "squeeze", "stop_gradient", "copy_p"}
 
 # -- ATen op -> JAX-primitive name --------------------------------------------
 # Keyed by the op's overload packet name (``aten.add.Tensor`` -> "add").
@@ -128,23 +148,28 @@ _ATEN_TO_PRIM = {
     "zeros": "broadcast_in_dim", "zeros_like": "broadcast_in_dim",
     "ones": "broadcast_in_dim", "ones_like": "broadcast_in_dim",
     "constant_pad_nd": "pad", "arange": "iota",
+    "unsqueeze": "broadcast_in_dim",
     # shuffles
     "t": "transpose", "transpose": "transpose", "permute": "transpose",
     "flip": "rev",
     # views (aliasing, no data movement)
     "view": "reshape", "_unsafe_view": "reshape", "reshape": "reshape",
-    "squeeze": "squeeze", "unsqueeze": "expand_dims",
-    "detach": "stop_gradient", "alias": "copy_p",
+    "squeeze": "squeeze", "detach": "stop_gradient", "alias": "copy_p",
     # slices
     "slice": "slice", "select": "select",
+    # matrix products (``einsum``: the node :class:`_KeepEinsum` records)
+    "mm": "dot_general", "bmm": "dot_general", "einsum": "dot_general",
+    # one ATen node, a sequence of primitives in JAX
+    "mean": "mean", "_softmax": "softmax", "stack": "stack",
     # higher-order ops (the CONTROL fallback)
     "while_loop": "while",
 }
 
 # ATen ops whose ``jnp`` counterpart jax 0.9 wraps in a nested ``jit``
-# (``_where``, ``_take``, ``remainder``, ``cumsum``): the jaxpr walk does
-# not enter it, so it is one CONTROL region whose pages are named ``jit``.
-_NESTED_JIT = {"where", "index", "take", "remainder", "cumsum"}
+# (``_where``, ``_take``, ``remainder``, ``cumsum``, ``silu``): the jaxpr
+# walk does not enter it, so it is one CONTROL region whose pages are
+# named ``jit``.
+_NESTED_JIT = {"where", "index", "take", "remainder", "cumsum", "silu"}
 
 # aten.max/min overloads: ``other`` is the binary elementwise op, ``default``
 # the full reduction (``dim`` returns values+indices: CONTROL fallback).
@@ -158,6 +183,59 @@ _FILLS = {"full", "full_like", "zeros", "zeros_like", "ones", "ones_like",
           "arange"}
 
 _LITERAL_MAX_ELEMS = 8
+
+
+def _einsum_labels(equation: str) -> Optional[Tuple[str, str, str]]:
+    """``(lhs, rhs, out)`` labels of a two-operand einsum that ``jnp.einsum``
+    lowers to one ``dot_general``: no ellipsis, no repeated label, and every
+    label in at least two of the three terms (none summed away on one
+    side).  None for any other equation."""
+    eq = equation.replace(" ", "")
+    if "..." in eq or eq.count("->") != 1:
+        return None
+    ins, out = eq.split("->")
+    if ins.count(",") != 1:
+        return None
+    lhs, rhs = ins.split(",")
+    terms = (lhs, rhs, out)
+    if any(len(set(t)) != len(t) for t in terms):
+        return None
+    if any(sum(c in t for t in terms) < 2 for c in lhs + rhs + out):
+        return None
+    return lhs, rhs, out
+
+
+@torch.library.custom_op("repro_torch::einsum", mutates_args=())
+def _einsum_node(equation: str, operands: List[torch.Tensor]) -> torch.Tensor:
+    """One two-operand ``torch.einsum``, recorded by ``make_fx`` as one
+    node."""
+    return torch.einsum(equation, *operands)
+
+
+@_einsum_node.register_fake
+def _einsum_node_fake(equation, operands):
+    lhs, rhs, out = _einsum_labels(equation)
+    size = {**dict(zip(lhs, operands[0].shape)),
+            **dict(zip(rhs, operands[1].shape))}
+    return operands[0].new_empty([size[c] for c in out],
+                                 dtype=torch.result_type(*operands))
+
+
+class _KeepEinsum(TorchFunctionMode):
+    """While tracing, a ``torch.einsum`` that ``jnp.einsum`` lowers to one
+    ``dot_general`` is recorded as one :func:`_einsum_node` instead of
+    ATen's ``unsqueeze`` / ``permute`` / ``view`` / ``bmm`` decomposition;
+    every other call runs as it is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.einsum and not kwargs:
+            equation, *operands = args
+            if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+                operands = list(operands[0])
+            if len(operands) == 2 and _einsum_labels(equation):
+                return _einsum_node(equation, list(operands))
+        return func(*args, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +283,13 @@ def _names(target) -> Tuple[str, str]:
 
 class _Vectorizer:
     def __init__(self, spec: SSDSpec, elem_bytes: int, quantize: bool,
-                 max_instrs: int):
+                 max_instrs: int, matmul_k_steps: int = 16):
         self.spec = spec
         self.page_bytes = spec.page_size
         self.elem_bytes = elem_bytes
         self.quantize = quantize
         self.max_instrs = max_instrs
+        self.matmul_k_steps = matmul_k_steps
         self.pages = PageTable(spec)
         self.instrs: List[VectorInstr] = []
         self.producer: Dict[int, int] = {}      # page id -> producing iid
@@ -300,6 +379,10 @@ class _Vectorizer:
             env[node] = None
             return
 
+        if aten == "clone" and node.users and all(
+                _names(u.target)[0] == "_unsafe_view" for u in node.users):
+            prim = "reshape"        # ATen's reshape of a strided view
+
         if prim in _FREE:
             src = self.pages_for(env, args[0])
             out_aval = self.aval(node)
@@ -312,12 +395,11 @@ class _Vectorizer:
                 env[node] = src[:need]   # aliasing, no data movement
             return
 
-        if prim == "slice":
-            self._slice(node, env)
-            return
-
-        if prim == "select":
-            self._select(node, env)
+        lower = {"slice": self._slice, "select": self._select,
+                 "dot_general": self._dot_general, "mean": self._mean,
+                 "softmax": self._softmax, "stack": self._stack}.get(prim)
+        if lower is not None:
+            lower(node, env)
             return
 
         if prim in _ELEMENTWISE:
@@ -351,8 +433,8 @@ class _Vectorizer:
             env[node] = out
             return
 
-        # Unknown op, loops, nested-jit ops (and, until a later slice,
-        # matmuls): conservatively non-vectorizable (paper §7).
+        # Unknown op, loops, nested-jit ops: conservatively
+        # non-vectorizable (paper §7).
         self._fallback_control(node, env, prim)
 
     def _promote_ranks(self, node, env: Dict) -> List[Optional[List[int]]]:
@@ -447,26 +529,40 @@ class _Vectorizer:
         return src_pages[first:last + 1] or src_pages[-1:]
 
     def _select(self, node, env: Dict) -> None:
-        """``x[i]`` along ``dim``: JAX's ``slice`` of ``[i, i + 1)`` then a
-        ``squeeze``, both aliasing (no data movement)."""
+        """``x[i]`` along ``dim``.  A non-negative ``i`` is JAX's ``slice``
+        of ``[i, i + 1)`` then a ``squeeze``, both aliasing (no data
+        movement).  A negative ``i`` is normalised at run time in jax 0.9
+        (``lt``, ``add``, ``select_n`` on scalars) for a ``dynamic_slice``,
+        which aliases every page of the source; the ``squeeze`` keeps the
+        first pages."""
         src, dim, index = node.args
         shape = tuple(src.meta["val"].shape)
         dim %= len(shape)
-        index %= shape[dim]
+        src_pages = self.pages_for(env, src)
+        need = self._npages(self.aval(node))
+        if index < 0:
+            flag, idx, sel = (_Aval(1, 1), _Aval(1, 4), _Aval(1, 4))
+            lt = self._alloc(flag, "lt")
+            self.emit_map("cmp", [None, None], lt, flag, "lt")
+            add = self._alloc(idx, "add")
+            self.emit_map("add", [None, None], add, idx, "add")
+            self.emit_map("select", [lt, None, add],
+                          self._alloc(sel, "select_n"), sel, "select_n")
+            env[node] = None if src_pages is None else src_pages[:need]
+            return
         zeros = (0,) * len(shape)
         pages = self._slice_pages(_SliceView(
-            base_pages=self.pages_for(env, src), base_shape=shape,
-            base_aval=self.aval(src),
+            base_pages=src_pages, base_shape=shape, base_aval=self.aval(src),
             starts=zeros[:dim] + (index,) + zeros[dim + 1:],
             limits=shape[:dim] + (index + 1,) + shape[dim + 1:],
             last_dim=dim))
-        env[node] = (None if pages is None
-                     else pages[:self._npages(self.aval(node))])
+        env[node] = None if pages is None else pages[:need]
 
-    def _reduction(self, node, env: Dict, op: str) -> None:
-        src = self.pages_for(env, node.args[0])
-        in_aval = self.aval(node.args[0])
-        out_aval = self.aval(node)
+    def _reduce(self, src: Optional[List[int]], in_aval: _Aval,
+                out_aval: _Aval, op: str) -> List[int]:
+        """Accumulate the page partials of ``src`` into the (smaller)
+        output; successive accumulations into one page serialize via the
+        producer dep."""
         out = self.pages.alloc_array(
             max(1, out_aval.size) * self._ebytes(out_aval), op)
         ebytes = self._ebytes(in_aval)
@@ -474,12 +570,135 @@ class _Vectorizer:
         if src is None:
             self.emit(op, [], out[0], 1, ebytes, op)
         else:
-            # accumulate page partials into the (smaller) output; successive
-            # accumulations into one page serialize via the producer dep.
             for i, s in enumerate(src):
                 dst = out[i % len(out)]
                 self.emit(op, [s, dst], dst,
                           min(lanes, in_aval.size), ebytes, op)
+        return out
+
+    def _broadcast(self, src: List[int], aval: _Aval) -> List[int]:
+        out = self._alloc(aval, "broadcast_in_dim")
+        self.emit_map(_COPYLIKE["broadcast_in_dim"], [src], out, aval,
+                      "broadcast_in_dim")
+        return out
+
+    def _reduction(self, node, env: Dict, op: str) -> List[int]:
+        """A reduction, then the ``broadcast_in_dim`` that ``keepdims``
+        adds in JAX (``keepdim`` is the third argument of every ATen
+        reduction that has one)."""
+        out_aval = self.aval(node)
+        out = self._reduce(self.pages_for(env, node.args[0]),
+                           self.aval(node.args[0]), out_aval, op)
+        if node.kwargs.get("keepdim",
+                           len(node.args) > 2 and node.args[2]):
+            out = self._broadcast(out, out_aval)
+        env[node] = out
+        return out
+
+    def _mean(self, node, env: Dict) -> None:
+        """``jnp.mean``: ``reduce_sum`` (and the ``keepdims`` broadcast),
+        then a ``div`` by the element count (a literal)."""
+        out = self._reduction(node, env, "reduce_sum")
+        quot = self._alloc(self.aval(node), "div")
+        self.emit_map("div", [out, None], quot, self.aval(node), "div")
+        env[node] = quot
+
+    def _softmax(self, node, env: Dict) -> None:
+        """``jax.nn.softmax``: ``reduce_max``, ``max`` with -inf,
+        ``broadcast_in_dim``, ``stop_gradient`` (free), ``sub``, ``exp``,
+        ``reduce_sum``, ``broadcast_in_dim``, ``div``."""
+        x = self.pages_for(env, node.args[0])
+        aval = self.aval(node.args[0])
+        val = node.args[0].meta["val"]
+        red = _Aval(aval.size // max(1, val.shape[node.args[1]]),
+                    aval.itemsize)
+        peak = self._reduce(x, aval, red, "reduce_max")
+        top = self._alloc(red, "max")
+        self.emit_map("max", [None, peak], top, red, "max")
+        top = self._broadcast(top, red)
+        diff = self._alloc(aval, "sub")
+        self.emit_map("sub", [x, top], diff, aval, "sub")
+        num = self._alloc(aval, "exp")
+        self.emit_map("exp", [diff], num, aval, "exp")
+        den = self._broadcast(self._reduce(num, aval, red, "reduce_sum"), red)
+        out = self._alloc(aval, "div")
+        self.emit_map("div", [num, den], out, aval, "div")
+        env[node] = out
+
+    def _stack(self, node, env: Dict) -> None:
+        """``jnp.stack``: a ``broadcast_in_dim`` of each operand, then one
+        ``concatenate``."""
+        parts = [self._broadcast(self.pages_for(env, a), self.aval(a))
+                 for a in node.args[0]]
+        out = self._alloc(self.aval(node), "concatenate")
+        self.emit_map(_COPYLIKE["concatenate"], parts, out, self.aval(node),
+                      "concatenate")
+        env[node] = out
+
+    def _dot_general(self, node, env: Dict) -> None:
+        """Decompose a matmul into page-wide multiply + accumulate chains.
+
+        C[b, m, n] += A[b, m, k] * B[b, k, n]: each (m, k, n-page) triple
+        becomes a ``mul`` into a scratch page followed by an ``add`` into
+        the accumulator page — the two native SIMD ops every resource's ISA
+        exposes.  Contraction steps are grouped into at most
+        ``matmul_k_steps`` macro-iterations per output page, each one
+        page-wide mul+add pair, as in the JAX package's ``_dot_general``.
+
+        Only the contraction length ``k`` and the operand order shape the
+        stream.  ``mm`` contracts ``[m, k] @ [k, n]``, ``bmm`` ``[b, m, k]
+        @ [b, k, n]``; an einsum contracts the labels its operands share
+        and the result lacks, with ``jnp.einsum``'s choice of operand order
+        and its ``transpose`` when neither order gives the result's labels
+        as ``dot_general`` lays them out (batch, lhs free, rhs free).
+        """
+        aten = _names(node.target)[0]
+        if aten == "einsum":
+            equation, (a, b) = node.args
+            lhs, rhs, res = _einsum_labels(equation)
+            size = dict(zip(lhs, a.meta["val"].shape))
+            k = math.prod(size[c] for c in lhs if c in rhs and c not in res)
+            batch = [c for c in res if c in lhs and c in rhs]
+            a_free = [c for c in lhs if c not in rhs]
+            b_free = [c for c in rhs if c not in lhs]
+            # jnp.einsum takes the operands in opt_einsum's (second, first)
+            # order and keeps the order that needs no transpose, if either
+            transpose = False
+            if batch + a_free + b_free != list(res):
+                a, b = b, a
+                transpose = batch + b_free + a_free != list(res)
+        else:                                   # mm, bmm: [..., m, k]
+            a, b = node.args
+            k = a.meta["val"].shape[-1]
+            transpose = False
+        out_aval = self.aval(node)
+        ebytes = self._ebytes(out_aval)
+        lanes = self._lanes(ebytes)
+        a_pages = self.pages_for(env, a) or []
+        b_pages = self.pages_for(env, b) or []
+        out = self.pages.alloc_array(out_aval.size * ebytes, "dot")
+        bp = max(1, len(b_pages))
+        ap = max(1, len(a_pages))
+        scratch = self.pages.alloc_array(
+            min(len(out), 8) * self.page_bytes, "dot_tmp", Location.DRAM)
+        k_steps = min(max(1, k), self.matmul_k_steps)
+        # Vectorize over the flattened OUTPUT; the contraction is the
+        # serial loop, grouped into k_steps macro-iterations.
+        for opg, dst in enumerate(out):
+            tmp = scratch[opg % len(scratch)]
+            vlen = max(1, min(lanes, out_aval.size - opg * lanes))
+            for ki in range(k_steps):
+                a_pid = a_pages[(opg * k_steps + ki) % ap] if a_pages else None
+                b_pid = (b_pages[(ki * len(out) + opg) % bp] if b_pages
+                         else None)
+                self.emit("mul", [a_pid, b_pid], tmp, vlen, ebytes,
+                          "dot_general")
+                self.emit("add", [tmp, dst], dst, vlen, ebytes, "dot_general")
+        if transpose:
+            shuffled = self._alloc(out_aval, "transpose")
+            self.emit_map(_SHUFFLE["transpose"], [out], shuffled, out_aval,
+                          "transpose")
+            out = shuffled
         env[node] = out
 
 
@@ -500,15 +719,16 @@ def vectorize(fn: Callable, *example_args,
     "we assume all application data resides in the SSD").
 
     ``fn`` is captured on fake tensors, so no data is computed and the
-    example arguments may live on any device.  ``scan_unroll_limit`` and
-    ``matmul_k_steps`` keep the JAX package's signature; counted loops and
-    matrix products take the CONTROL fallback until the port's later
-    slices lower them.
+    example arguments may live on any device.  ``matmul_k_steps`` bounds
+    the macro-iterations of each matrix product's contraction.
+    ``scan_unroll_limit`` keeps the JAX package's signature: the port has
+    no counted-loop construct to unroll yet.
     """
-    del scan_unroll_limit, matmul_k_steps
-    gm = make_fx(fn, tracing_mode="fake",
-                 _allow_non_fake_inputs=True)(*example_args)
-    v = _Vectorizer(spec, elem_bytes, quantize, max_instrs)
+    del scan_unroll_limit
+    with _KeepEinsum():
+        gm = make_fx(fn, tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(*example_args)
+    v = _Vectorizer(spec, elem_bytes, quantize, max_instrs, matmul_k_steps)
     env: Dict = {}
     input_pages: Dict[str, List[int]] = {}
     nodes = list(gm.graph.nodes)

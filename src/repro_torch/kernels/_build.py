@@ -37,6 +37,7 @@ SIGNATURES = {
     "ndp_mws_i8": (_P, _P, _N, _N, ctypes.c_int, _P),
     "ndp_mws_i32": (_P, _P, _N, _N, ctypes.c_int, _P),
     "ndp_search_i32": (_P, _P, _P, _N, ctypes.c_int, _P),
+    "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _P),
 }
 
 

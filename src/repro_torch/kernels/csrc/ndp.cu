@@ -13,8 +13,13 @@
 //   search               — IFP match line: XNOR of every record word with
 //                          the query, wired-AND over the record; replaces
 //                          repro/kernels/search.py _search_kernel.
+//   int8_matmul          — the INT8 GEMM of the quantized LLM workloads
+//                          (§5.4), int8[M,K] @ int8[K,N] -> int32[M,N];
+//                          replaces repro/kernels/int8_matmul.py
+//                          _matmul_kernel.  See its own note below.
 //
-// Each kernel keeps the gate-level loop of the TPU kernel, because that
+// Each elementwise kernel (all but int8_matmul) keeps the gate-level loop
+// of the TPU kernel, because that
 // loop *is* the model of the in-memory circuit: the adder is built only
 // from XOR (sum) and AND-then-shift (carry) row operations, the
 // multipliers from predicated shifted partial products.  It is not carried
@@ -173,6 +178,98 @@ __global__ void search_kernel(const uint32_t* __restrict__ stack,
   }
 }
 
+// INT8 GEMM, int8[M,K] @ int8[K,N] -> int32[M,N], row-major, any M, N, K.
+//
+// The TPU kernel keeps one (128, 128) int32 output block resident in VMEM
+// while the sequential K grid axis accumulates into it.  Here one block of
+// 256 threads owns a kMmBM x kMmBN output tile in registers and walks K
+// itself, staging kMmBK bytes of K of A and B in shared memory per step:
+//   * A's tile is stored as it lies: 4 consecutive k of one row per word;
+//   * B's tile is stored transposed, 4 consecutive k of one column per
+//     word, so that __dp4a multiplies four int8 pairs and adds them to an
+//     int32 accumulator in one instruction;
+//   * every byte is loaded on its own, masked to 0 outside M, N or K, so
+//     no shape needs padding and no row needs alignment.
+// Thread (ty, tx) computes row ty and columns tx + 16 j (j < 4) of the
+// tile; a warp reads 16 distinct B rows of the padded (stride 33 words)
+// shared tile, conflict-free, and two A words, each broadcast.  The int32
+// sums wrap as int32 arithmetic does, as the TPU kernel's do.
+//
+// At the LLM shapes (M = 48 tokens, K and N 1024..8192) the function is
+// bound by the bytes of B (the weights) read once; this simple form is
+// instead bound by its serial stage loop (load, sync, compute) and by
+// byte-wide loads: tensor cores (mma.sync s8, then wgmma with TMA) are
+// the way to the bound, in a later change.
+constexpr int kMmBM = 16;
+constexpr int kMmBN = 64;
+constexpr int kMmBK = 128;                  // bytes of K per stage
+constexpr int kMmWords = kMmBK / 4;         // packed words of K per stage
+constexpr int kMmThreads = 256;
+
+__global__ void __launch_bounds__(kMmThreads)
+int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                   int32_t* __restrict__ out, long long m, long long n,
+                   long long k) {
+  __shared__ uint32_t as[kMmBM][kMmWords + 1];
+  __shared__ uint32_t bs[kMmBN][kMmWords + 1];
+  const int t = threadIdx.x;
+  const int ty = t / 16;
+  const int tx = t % 16;
+  const long long row0 = static_cast<long long>(blockIdx.y) * kMmBM;
+  const long long col0 = static_cast<long long>(blockIdx.x) * kMmBN;
+  // loaders: two words of one A row, eight words of one B column
+  const int a_row = t / 16;
+  const int a_word = (t % 16) * 2;
+  const int b_col = t % kMmBN;
+  const int b_word = (t / kMmBN) * 8;
+  int acc[4] = {0, 0, 0, 0};
+  for (long long k0 = 0; k0 < k; k0 += kMmBK) {
+    const long long r = row0 + a_row;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long kk = k0 + (a_word + w) * 4 + i;
+        const uint32_t v =
+            (r < m && kk < k) ? static_cast<uint8_t>(a[r * k + kk]) : 0u;
+        word |= v << (8 * i);
+      }
+      as[a_row][a_word + w] = word;
+    }
+    const long long c = col0 + b_col;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long kk = k0 + (b_word + w) * 4 + i;
+        const uint32_t v =
+            (c < n && kk < k) ? static_cast<uint8_t>(b[kk * n + c]) : 0u;
+        word |= v << (8 * i);
+      }
+      bs[b_col][b_word + w] = word;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int w = 0; w < kMmWords; ++w) {
+      const int av = static_cast<int>(as[ty][w]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j] = __dp4a(av, static_cast<int>(bs[tx + 16 * j][w]), acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+  const long long r = row0 + ty;
+  if (r >= m) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long c = col0 + tx + 16 * j;
+    if (c < n) out[r * n + c] = acc[j];
+  }
+}
+
 inline unsigned int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -255,9 +352,33 @@ cudaError_t launch_search(const void* stack, const void* query, void* out,
   return cudaGetLastError();
 }
 
+cudaError_t launch_int8_matmul(const void* a, const void* b, void* out,
+                               long long m, long long n, long long k,
+                               void* stream) {
+  if (m < 0 || n < 0 || k < 0) return cudaErrorInvalidValue;
+  if (m == 0 || n == 0) return cudaSuccess;
+  const long long row_tiles = (m + kMmBM - 1) / kMmBM;
+  const long long col_tiles = (n + kMmBN - 1) / kMmBN;
+  if (row_tiles > 65535 || col_tiles > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(static_cast<unsigned int>(col_tiles),
+                  static_cast<unsigned int>(row_tiles));
+  int8_matmul_kernel<<<grid, kMmThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<int32_t*>(out), m, n, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int ndp_int8_matmul(const void* a, const void* b, void* out, long long m,
+                    long long n, long long k, void* stream) {
+  return static_cast<int>(launch_int8_matmul(a, b, out, m, n, k, stream));
+}
 
 int ndp_mws_i8(const void* stack, void* out, long long n_ops, long long n,
                int op, void* stream) {

@@ -4,7 +4,8 @@ Keeps the JAX package's ``repro.kernels.ops`` contract: 2-D ``[rows,
 cols]`` operands of one shape, int8 or int32 (int32 for
 ``shift_add_mul``); a ``[n_ops, rows, cols]`` int8 or int32 stack for
 ``mws_bitwise``; an int32 ``[rows, words]`` stack and ``[wpr]`` query
-for ``search_pages``.  Any rows and cols — there is no tiling to pad to.
+for ``search_pages``; int8 ``[M, K]`` and ``[K, N]`` for ``int8_matmul``.
+Any rows and cols — there is no tiling to pad to.
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor is
 computed by the kernel's plain PyTorch version (:mod:`.ref`); a CUDA
@@ -18,6 +19,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import bitserial as _bitserial
+from repro_torch.kernels import int8_matmul as _int8_matmul
 from repro_torch.kernels import mws as _mws
 from repro_torch.kernels import ref
 from repro_torch.kernels import search as _search
@@ -92,13 +94,33 @@ def search_pages(stack: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return ref.search_plain(stack, query)
 
 
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """INT8 GEMM with int32 accumulation (the LLM workloads' §5.4 lanes)."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_matmul: expected [M, K] and [K, N], got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if min(*a.shape, b.shape[1]) < 1:
+        raise ValueError(f"int8_matmul: empty operand, {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul: expected int8, got {a.dtype} and "
+                        f"{b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"int8_matmul: operands on {a.device} and "
+                         f"{b.device}")
+    if a.is_cuda:
+        return _int8_matmul.int8_matmul(a.contiguous(), b.contiguous())
+    return ref.int8_matmul_plain(a, b)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"bitserial_add": _bitserial.ADD_LAUNCHES,
             "bitserial_mul": _bitserial.MUL_LAUNCHES,
             "shift_add_mul": _shift_add.LAUNCHES,
             "mws_bitwise": _mws.LAUNCHES,
-            "search_pages": _search.LAUNCHES}
+            "search_pages": _search.LAUNCHES,
+            "int8_matmul": _int8_matmul.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -107,3 +129,4 @@ def reset_launch_counts() -> None:
     _shift_add.LAUNCHES = 0
     _mws.LAUNCHES = 0
     _search.LAUNCHES = 0
+    _int8_matmul.LAUNCHES = 0

@@ -3,12 +3,13 @@
 For each kernel two functions, mirroring ``repro.kernels.ref``:
 
 * ``*_plain`` — the kernel's gate-level loop written in torch ops (the same
-  rounds of XOR / AND / shift / predicated add the CUDA kernel runs).  On a
-  CPU tensor :mod:`repro_torch.kernels.ops` computes with it; on the card
-  it is what each kernel is held against.
+  rounds of XOR / AND / shift / predicated add the CUDA kernel runs; for
+  the GEMM, an exact product in torch ops).  On a CPU tensor
+  :mod:`repro_torch.kernels.ops` computes with it; on the card it is what
+  each kernel is held against.
 * ``ref_*`` — the mathematical specification (the correctness ground
   truth): integer add, multiply, multiply by the masked multiplier, a
-  bitwise reduce, word equality.
+  bitwise reduce, word equality, an int32 matrix product.
 
 Integer tensors wrap on overflow, as the JAX package's int8/int32 arrays
 do, so all of these are exact.
@@ -110,6 +111,29 @@ def ref_mws(stack: torch.Tensor, op: str) -> torch.Tensor:
           "xor": torch.bitwise_xor}[base]
     out = functools.reduce(fn, stack.unbind(0))
     return ~out if base != op else out
+
+
+# Each int8 x int8 product is at most 2**14 in magnitude, so a float64 sum
+# of up to 2**38 of them is an integer below 2**53: exact in any order.
+_EXACT_K = 1 << 38
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """INT8 GEMM with int32 accumulation, exact on the CPU and on CUDA
+    (which has no integer matmul): float64 products over K-chunks whose
+    sums stay exact, added in int64 and wrapped to int32."""
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], _EXACT_K):
+        part = a[:, k0:k0 + _EXACT_K].double() @ b[k0:k0 + _EXACT_K].double()
+        acc += part.to(torch.int64)
+    return acc.to(torch.int32)
+
+
+def ref_int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """INT8 x INT8 -> INT32 matmul (the quantized-workload GEMM, §5.4):
+    int32 operands and int32 sums, on the CPU."""
+    return a.to(torch.int32) @ b.to(torch.int32)
 
 
 def ref_search(stack: torch.Tensor, query: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@ Each workload module exposes ``make_fn(scale)`` (the PyTorch program),
 ``default_rng(seed)`` exactly as the JAX package draws them), ``SIM``
 (simulator pressure knobs) and ``META`` (the paper's Table 3
 characterization for comparison).  The port carries aes, xor_filter,
-heat3d and jacobi1d; llama2_infer and llm_train follow in a later slice.
+heat3d, jacobi1d and llama2_infer; llm_train follows in a later slice.
 
 ``get_trace`` runs Conduit's compile-time preprocessing on the workload;
 ``sim_config_for`` derives the per-workload capacity pressure (the paper
@@ -26,13 +26,15 @@ from repro_torch.core.trace import Trace
 from repro_torch.core.vectorize import vectorize
 from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
 from repro_torch.sim.machine import SimConfig
-from repro_torch.workloads import aes, heat3d, jacobi1d, xor_filter
+from repro_torch.workloads import (aes, heat3d, jacobi1d, llama2_infer,
+                                  xor_filter)
 
 WORKLOADS = {
     "aes": aes,
     "xor_filter": xor_filter,
     "heat3d": heat3d,
     "jacobi1d": jacobi1d,
+    "llama2_infer": llama2_infer,
 }
 
 

@@ -10,8 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (_build, bitserial, mws, ops, ref,  # noqa: E402
-                                 search, shift_add)
+from repro_torch.kernels import (_build, bitserial, int8_matmul,  # noqa: E402
+                                 mws, ops, ref, search, shift_add)
 
 # the grids of tests/test_kernels.py
 INT_SHAPES = [(8, 128), (16, 256), (8, 512), (24, 384), (64, 128)]
@@ -23,6 +23,10 @@ MWS_OPS = ["and", "or", "xor", "nand", "nor"]
 MWS_GRID = [(n, op, d) for d in INT_DTYPES for op in MWS_OPS
             for n in (2, 3, 7, 48)]
 SEARCH_GRID = [(wpr, rows) for rows in (8, 24, 13) for wpr in (1, 2, 4)]
+# (M, K, N): the int8_matmul grid of tests/test_kernels.py, then shapes that
+# divide nothing
+MATMUL_GRID = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160)]
+MATMUL_RAGGED = [(13, 37, 29), (1, 1, 1), (3, 5, 130)]
 
 
 def _rand(rng, shape, dtype):
@@ -51,6 +55,11 @@ def _records(wpr, rows, seed=42):
     stack = _rand(np.random.default_rng(seed), (rows, 32), np.int32)
     stack[3, :wpr] = np.arange(wpr)
     return stack, np.arange(wpr, dtype=np.int32)
+
+
+def _matmul_operands(m, k, n, seed=42):
+    rng = np.random.default_rng(seed)
+    return _rand(rng, (m, k), np.int8), _rand(rng, (k, n), np.int8)
 
 
 def _reference():
@@ -126,6 +135,35 @@ def test_search_plain_equals_repro_oracle_and_pallas(wpr, rows):
         ref.ref_search(_t(stack), _t(query)).numpy(), want)
 
 
+@pytest.mark.parametrize("m,k,n", MATMUL_GRID)
+def test_int8_matmul_plain_equals_repro_oracle_and_pallas(m, k, n):
+    jnp, repro_ops, repro_ref = _reference()
+    a, b = _matmul_operands(m, k, n)
+    want = np.asarray(repro_ref.ref_int8_matmul(jnp.asarray(a),
+                                                jnp.asarray(b)))
+    np.testing.assert_array_equal(
+        np.asarray(repro_ops.int8_matmul(jnp.asarray(a), jnp.asarray(b))),
+        want)
+    got = ref.int8_matmul_plain(_t(a), _t(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ref.ref_int8_matmul(_t(a), _t(b)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("k", [4096, 1 << 17])
+def test_int8_matmul_plain_wraps_like_repro(k):
+    """All -128: every sum is k * 2**14, which wraps at k = 2**17."""
+    jnp, _, repro_ref = _reference()
+    a = np.full((3, k), -128, np.int8)
+    b = np.full((k, 2), -128, np.int8)
+    want = np.asarray(repro_ref.ref_int8_matmul(jnp.asarray(a),
+                                                jnp.asarray(b)))
+    assert want[0, 0] == (k * 2 ** 14 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    np.testing.assert_array_equal(
+        ref.int8_matmul_plain(_t(a), _t(b)).numpy(), want)
+
+
 @pytest.mark.parametrize("kernel,dtype", [
     ("bitserial_add", np.int8), ("bitserial_mul", np.int32),
     ("shift_add_mul", np.int32)])
@@ -165,6 +203,18 @@ def test_mws_on_cpu_takes_any_shape_and_launches_nothing(dtype, op):
     assert ops.launch_counts() == before
 
 
+@pytest.mark.parametrize("m,k,n", MATMUL_RAGGED + MATMUL_GRID[:1])
+def test_int8_matmul_on_cpu_takes_any_shape_and_launches_nothing(m, k, n):
+    before = ops.launch_counts()
+    a, b = (_t(x) for x in _matmul_operands(m, k, n, seed=6))
+    got = ops.int8_matmul(a, b)
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, ref.ref_int8_matmul(a, b))
+    assert torch.equal(ops.int8_matmul(a, b.T.contiguous().T),
+                       got)                       # a strided view of B
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.parametrize("wpr", [1, 3])
 def test_search_on_cpu_takes_any_rows_and_launches_nothing(wpr):
     before = ops.launch_counts()
@@ -198,9 +248,21 @@ def test_search_on_cpu_takes_any_rows_and_launches_nothing(wpr):
                              torch.zeros(1, 2, dtype=torch.int32)),
     lambda: ops.search_pages(torch.zeros(2, 8, dtype=torch.int32),
                              torch.zeros(0, dtype=torch.int32)),
+    lambda: ops.int8_matmul(torch.zeros(2, 8, dtype=torch.int8),
+                            torch.zeros(4, 3, dtype=torch.int8)),
+    lambda: ops.int8_matmul(torch.zeros(8, dtype=torch.int8),
+                            torch.zeros(8, 3, dtype=torch.int8)),
+    lambda: ops.int8_matmul(torch.zeros(2, 8, dtype=torch.int32),
+                            torch.zeros(8, 3, dtype=torch.int32)),
+    lambda: ops.int8_matmul(torch.zeros(2, 8, dtype=torch.int8),
+                            torch.zeros(8, 3, dtype=torch.uint8)),
+    lambda: ops.int8_matmul(torch.zeros(0, 8, dtype=torch.int8),
+                            torch.zeros(8, 3, dtype=torch.int8)),
 ], ids=["1d", "shapes", "float", "mixed_dtypes", "shift_add_int8",
         "mws_2d", "mws_float", "mws_int16", "mws_op", "search_ragged",
-        "search_int8", "search_query_2d", "search_empty_query"])
+        "search_int8", "search_query_2d", "search_empty_query",
+        "matmul_inner_dims", "matmul_1d", "matmul_int32", "matmul_uint8",
+        "matmul_empty"])
 def test_ops_reject_what_the_contract_excludes(call):
     with pytest.raises((ValueError, TypeError)):
         call()
@@ -212,8 +274,10 @@ def test_ops_reject_what_the_contract_excludes(call):
     lambda a: shift_add.shift_add_mul(a, a, bits=8),
     lambda a: mws.mws_bitwise(a.reshape(2, 4, 128), "xor"),
     lambda a: search.search_pages(a, a[0, :4].contiguous()),
+    lambda a: int8_matmul.int8_matmul(a.to(torch.int8),
+                                      a.to(torch.int8).T.contiguous()),
 ], ids=["bitserial_add", "bitserial_mul", "shift_add_mul", "mws_bitwise",
-        "search_pages"])
+        "search_pages", "int8_matmul"])
 def test_kernel_wrappers_never_fall_back_to_the_cpu(launch):
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
@@ -276,4 +340,33 @@ def test_cuda_kernels_equal_their_plain_versions():
                                    "bitserial_mul": len(MUL_GRID),
                                    "shift_add_mul": len(SHIFT_GRID),
                                    "mws_bitwise": len(MWS_GRID),
-                                   "search_pages": len(SEARCH_GRID)}
+                                   "search_pages": len(SEARCH_GRID),
+                                   "int8_matmul": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_equals_its_plain_version():
+    """K5 on the card: exact on the grid, on shapes that divide nothing,
+    on a strided B, and where the int32 sum wraps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
+    ops.reset_launch_counts()
+    shapes = MATMUL_GRID + MATMUL_RAGGED + [(48, 1024, 2816)]
+    for m, k, n in shapes:
+        a, b = (_t(x).cuda() for x in _matmul_operands(m, k, n))
+        got = ops.int8_matmul(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.int8_matmul_plain(a, b)), (m, k, n)
+    a, b = (_t(x).cuda() for x in _matmul_operands(48, 64, 40, seed=9))
+    assert torch.equal(ops.int8_matmul(a, b.T.contiguous().T),
+                       ref.int8_matmul_plain(a, b))
+    k = 1 << 17
+    got = ops.int8_matmul(torch.full((3, k), -128, dtype=torch.int8,
+                                     device="cuda"),
+                          torch.full((k, 5), -128, dtype=torch.int8,
+                                     device="cuda"))
+    torch.cuda.synchronize()
+    assert bool((got == -2 ** 31).all())
+    assert ops.launch_counts()["int8_matmul"] == len(shapes) + 2

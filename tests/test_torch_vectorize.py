@@ -25,6 +25,14 @@ X = RNG.integers(-64, 64, size=(8, 8192), dtype=np.int32)  # 4 pages
 C = RNG.integers(-64, 64, size=(20000,), dtype=np.int32)   # captured
 I = RNG.integers(0, 40000, size=(30000,), dtype=np.int32)   # indices into A
 U = RNG.integers(-64, 64, size=(12, 20, 30), dtype=np.int32)
+# float32 operands of the matrix products and the LLM ops
+XM = RNG.standard_normal((64, 512)).astype(np.float32)       # 2 pages
+WM = RNG.standard_normal((512, 1024)).astype(np.float32)     # 32 pages
+WT = RNG.standard_normal((1024, 512)).astype(np.float32)
+QH = RNG.standard_normal((4, 64, 128)).astype(np.float32)    # heads, seq, dh
+KH = RNG.standard_normal((4, 64, 128)).astype(np.float32)
+PH = RNG.standard_normal((4, 64, 64)).astype(np.float32)     # heads, q, k
+LG = RNG.standard_normal((8, 8192)).astype(np.float32)       # 4 pages
 J_C, T_C = jnp.asarray(C), torch.from_numpy(C.copy())
 
 
@@ -84,6 +92,38 @@ PROGRAMS = {
                                      [(1, 1, 0), (2, 0, 0), (0, 3, 0)]),
                lambda u: torch.nn.functional.pad(u, (0, 3, 2, 0, 1, 1)),
                (U,)),
+    # matrix products: dot_general; x @ w.T keeps its transpose, einsum
+    # adds none (and one where the result order is not dot_general's)
+    "matmul": (lambda x, w: x @ w, lambda x, w: x @ w, (XM, WM)),
+    "matmul_wT": (lambda x, w: x @ w.T, lambda x, w: x @ w.T, (XM, WT)),
+    "einsum_qk": (lambda q, k: jnp.einsum("hqd,hkd->hqk", q, k),
+                  lambda q, k: torch.einsum("hqd,hkd->hqk", q, k),
+                  (QH, KH)),
+    "einsum_pv": (lambda p, v: jnp.einsum("hqk,hkd->hqd", p, v),
+                  lambda p, v: torch.einsum("hqk,hkd->hqd", p, v),
+                  (PH, KH)),
+    "einsum_out_transposed": (
+        lambda q, k: jnp.einsum("hqd,hkd->khq", q, k),
+        lambda q, k: torch.einsum("hqd,hkd->khq", q, k), (QH, KH)),
+    # ATen's clone + _unsafe_view is JAX's free reshape after a transpose
+    "permute_reshape": (lambda q: q.transpose(1, 0, 2).reshape(64, -1) * 2,
+                        lambda q: q.permute(1, 0, 2).reshape(64, -1) * 2,
+                        (QH,)),
+    "mean_keepdim": (lambda x: jnp.mean(x * x, axis=-1, keepdims=True),
+                     lambda x: (x * x).mean(-1, keepdim=True), (XM,)),
+    "sum_keepdim": (lambda x: jnp.sum(x, axis=1, keepdims=True),
+                    lambda x: x.sum(1, keepdim=True), (XM,)),
+    "softmax": (lambda p: jax.nn.softmax(p, axis=-1),
+                lambda p: torch.softmax(p, dim=-1), (PH,)),
+    "silu": (jax.nn.silu, lambda x: torch.nn.functional.silu(x), (XM,)),
+    # a negative index is a run-time normalisation + dynamic_slice in jax
+    "select_last_argmax": (lambda x: jnp.argmax(x[-1]),
+                           lambda x: torch.argmax(x[-1]), (LG,)),
+    "select_negative": (lambda x: x[-3] * 2, lambda x: x[-3] * 2, (X,)),
+    "unsqueeze_cat": (lambda a, b: jnp.concatenate([a[1:], b[7][None]]),
+                      lambda a, b: torch.cat([a[1:], b[7][None]]), (A, B)),
+    "stack": (lambda a, b: jnp.stack([a, b, a]),
+              lambda a, b: torch.stack([a, b, a]), (A, B)),
 }
 
 
@@ -118,9 +158,28 @@ def test_one_primitive_program_matches_repro(name):
     assert_same_trace(got, want)
 
 
-@pytest.mark.parametrize("name", ["add", "reduce_sum", "slice_2d"])
+@pytest.mark.parametrize("name", ["add", "reduce_sum", "slice_2d",
+                                  "select_last_argmax", "matmul"])
 def test_unquantized_matches_repro(name):
     got, want = both(name, quantize=False)
+    assert_same_trace(got, want)
+
+
+@pytest.mark.parametrize("k_steps", [4, 16])
+@pytest.mark.parametrize("name", ["matmul", "einsum_qk", "einsum_pv"])
+def test_matmul_k_steps_match_repro(name, k_steps):
+    got, want = both(name, matmul_k_steps=k_steps)
+    assert_same_trace(got, want)
+    # one mul + add per output page and contraction macro-iteration
+    out_pages = len(got.output_pages[0])
+    assert [i.op for i in got.instrs].count("mul") == out_pages * k_steps
+
+
+def test_einsum_is_one_dot_general_without_shuffles():
+    """torch.einsum is captured as one node, not ATen's permute / view /
+    bmm chain: the stream holds the product's mul + add pairs only."""
+    got, want = both("einsum_qk")
+    assert {i.op for i in got.instrs} == {"mul", "add"}
     assert_same_trace(got, want)
 
 
@@ -129,10 +188,13 @@ def assert_same_workload_trace(name, scale):
     cached ones: ``simulate`` moves the pages of the trace it runs, and
     another test in the process may have simulated a cached trace."""
     got_mod, want_mod = WORKLOADS[name], REPRO_WORKLOADS[name]
+    kw = getattr(want_mod, "VECTORIZE_KW", {})
+    assert getattr(got_mod, "VECTORIZE_KW", {}) == kw
     got = vectorize(got_mod.make_fn(scale),
-                    *got_mod.make_inputs(scale, device="cpu"), name=name)
+                    *got_mod.make_inputs(scale, device="cpu"), name=name,
+                    **kw)
     want = repro_vectorize(want_mod.make_fn(scale),
-                           *want_mod.make_inputs(scale), name=name)
+                           *want_mod.make_inputs(scale), name=name, **kw)
     assert_same_trace(got, want)
     assert got.characterize().as_row() == want.characterize().as_row()
     assert (dataclasses.asdict(got.characterize())
@@ -145,10 +207,12 @@ def test_jacobi1d_trace_matches_repro(scale):
 
 
 @pytest.mark.parametrize("scale", ["tiny", "paper"])
-@pytest.mark.parametrize("name", ["aes", "xor_filter", "heat3d"])
+@pytest.mark.parametrize("name", ["aes", "xor_filter", "heat3d",
+                                  "llama2_infer"])
 def test_workload_trace_matches_repro(name, scale):
     """while_loop, gathers, ``%``, ``where``, ``x[r]`` with a rank
-    broadcast and 3-D ``pad`` on the paper's own programs."""
+    broadcast and 3-D ``pad``; matrix products, einsums, softmax, RMSNorm,
+    ``logits[-1]`` and the decode feed, on the paper's own programs."""
     assert_same_workload_trace(name, scale)
 
 
@@ -178,6 +242,12 @@ def test_budget_exceeded_raises():
     with pytest.raises(TraceBudgetExceeded, match="max_instrs=2"):
         vectorize(lambda a, b: a + b, torch.from_numpy(A.copy()),
                   torch.from_numpy(B.copy()), max_instrs=2)
+
+
+def test_matmul_no_longer_takes_the_control_fallback():
+    got, _ = both("matmul_wT")
+    assert all(i.vectorizable for i in got.instrs)
+    assert [i.op for i in got.instrs][:1] == ["shuffle"]      # w.T
 
 
 def test_scalar_and_small_constants_are_literals():
