@@ -30,7 +30,17 @@ last line:
    INT8 lanes (per-tensor symmetric quantization, the INT8 GEMM,
    dequantization).  Each must equal the numeric run (or, for search and
    the GEMMs, the plain version) bit for bit, and the launch counters,
-   zeroed before each replay, must show the kernels ran.
+   zeroed before each replay, must show the kernels ran;
+6. serve — the LM serving path (``repro_torch.launch.serve``), whose
+   prefill attends through the flash-attention kernel: reduced
+   tinyllama-1.1b in fp32 on weights made here from a seed in the JAX
+   package's tree layout (every request's greedy tokens must have the
+   JAX package's digest), then tinyllama-1.1b at full width and depth in
+   bf16 through ``serve`` (8 requests of 1024 tokens, batch 4, 16 new
+   tokens): the kernel must launch once per layer and batch, every call
+   (recorded in a second run) must agree with the plain version, and the
+   throughput, latency, prefill/decode wall time and peak memory are
+   printed beside the card's name and power limit.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -38,6 +48,8 @@ package beside this script, it fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import hashlib
 import itertools
 import json
@@ -61,7 +73,11 @@ from repro_torch.core.cost import SystemView  # noqa: E402
 from repro_torch.core.isa import Location, Resource, VectorInstr  # noqa: E402
 from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
+                                      serve_requests)
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
 from repro_torch.workloads import (WORKLOADS, _llama,  # noqa: E402
                                    get_trace, jacobi1d, llama2_infer,
@@ -74,9 +90,12 @@ HBM_BYTES_PER_S = 3.35e12
 # Guide, arithmetic instruction throughput: 32-bit integer add, shift,
 # and bitwise logic at 64 results per clock per SM)
 INT32_OPS_PER_CLOCK_PER_SM = 64
-# the H100 SXM's dense INT8 tensor-core peak (NVIDIA data sheet), at the
-# 700 W power limit
+# the H100 SXM's dense INT8 and bf16 tensor-core peaks (NVIDIA data sheet),
+# at the 700 W power limit
 INT8_TENSOR_OPS_PER_S = 1.979e15
+BF16_TENSOR_FLOPS_PER_S = 989e12
+# fp32 outside the tensor cores (the same data sheet)
+FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 INT_SHAPES = [(8, 128), (16, 256), (8, 512), (24, 384), (64, 128)]
@@ -90,6 +109,23 @@ SEARCH_WPR = 4                     # a 16-byte record in the search replay
 MATMUL_SHAPES = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160),
                  (13, 37, 29), (1, 1, 1)]
 MATMUL_EXTREMES = [(16, 4096, 24), (4, 1 << 17, 8)]
+# flash-attention cases (heads, Sq, Sk, dh): the tests/test_kernels.py
+# grid, causal Sq != Sk, ragged lengths, each head dim, several q tiles
+ATTN_CASES = [(2, 64, 64, 32), (1, 128, 128, 64), (4, 32, 32, 16),
+              (2, 32, 128, 32), (3, 13, 37, 64), (2, 37, 13, 16),
+              (1, 24, 40, 128), (2, 300, 300, 128), (2, 520, 1040, 64)]
+# tolerance (atol = rtol) against the plain version: fp32 as
+# tests/test_kernels.py:79 holds the Pallas kernel; bf16: kernel and plain
+# version both round one fp32 result to bf16, so they differ by at most one
+# bf16 ulp, 2**-7 of the value
+ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
+# the serving path: the default --arch of repro.launch.serve
+SERVE_ARCH = "tinyllama-1.1b"
+# full width and depth, bf16: two batches of four 1024-token prompts
+SERVE_FULL = {"n_requests": 8, "batch": 4, "prompt_len": 1024,
+              "max_new": 16}
+# the pinned run: reduced config, fp32, weights from jax_layout_params
+SERVE_PINNED = {"n_requests": 4, "batch": 2, "prompt_len": 8, "max_new": 4}
 
 # The JAX package's results at "paper" scale: Table 3 row, conduit
 # makespan, and the digest of ``run_numeric``'s outputs (output_digest).
@@ -127,6 +163,16 @@ REFERENCE = {
         "numeric_sha256": "868e385395133e28feda427b671da1f2"
                           "af73db3a9b821e7aa595adcd0e665ad3"},
 }
+# The JAX package's greedy tokens of the pinned serving run (reduced
+# tinyllama-1.1b in fp32 on jax_layout_params(cfg, seed=0), SERVE_PINNED,
+# the prompts of its serve(seed=0)): output_digest of each request's
+# tokens, in request order.  tests/test_torch_chip_smoke.py recomputes
+# them with the JAX package's prefill and serve steps.
+SERVE_REFERENCE = {"tokens_sha256": [
+    "71c2320dc58320cf6f617a86941611a16ca5d3025a3b85b6229aa7d32adf91ea",
+    "97e52bc2e8d1fd8bdad649eb9f34897d258da6fc96c36a4d21bd9c8c2c74e608",
+    "e23d31ac734784fed22b7bd93aa4bc0c94332db4bbe170c6b19cd7457d8039a0",
+    "001b3cba040c4bc14856d52d3af2f8b70952b698aefd7039ce4052b051a41958"]}
 # run_numeric's output dtype where it is not the JAX package's int32: the
 # tokens torch.argmax gives are int64 (jnp.argmax gives int32); the digest
 # reads every output as int32
@@ -137,7 +183,8 @@ REPLACES = {"bitserial_add": "src/repro/kernels/bitserial.py:19",
             "shift_add_mul": "src/repro/kernels/shift_add.py:21",
             "mws_bitwise": "src/repro/kernels/mws.py:27",
             "search_pages": "src/repro/kernels/search.py:24",
-            "int8_matmul": "src/repro/kernels/int8_matmul.py:18"}
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:18",
+            "flash_attention": "src/repro/kernels/attention.py:21"}
 
 
 def phase(name: str) -> None:
@@ -176,7 +223,8 @@ def sass_report(lib_path: str, nvcc: str) -> None:
         name = label = chunk.split()[0]
         # a mangled name spells each identifier as <length><identifier>;
         # template args follow the kernel's: h uint8, j uint32, Li<k>E the
-        # MWS op code
+        # MWS op code; f float, 13__nv_bfloat16, Li<dh>E the attention's
+        # head dim
         for digits in re.finditer(r"(?=(\d+))", name):
             end = digits.start() + len(digits.group(1))
             ident = name[end:end + int(digits.group(1))]
@@ -184,8 +232,13 @@ def sass_report(lib_path: str, nvcc: str) -> None:
                 continue
             targs = re.match(r"I([hj])(?:Li(\d)E)?E",
                              name[end + len(ident):])
+            attn = re.match(r"I(f|13__nv_bfloat16)Li(\d+)EE",
+                            name[end + len(ident):])
             label = ident
-            if targs:
+            if attn:
+                elem = {"f": "f32"}.get(attn.group(1), "bf16")
+                label = f"{ident}<{elem}, dh {attn.group(2)}>"
+            elif targs:
                 elem = {"h": "u8", "j": "u32"}[targs.group(1)]
                 op = (f", {MWS_OPS[int(targs.group(2))]}"
                       if targs.group(2) is not None else "")
@@ -438,6 +491,112 @@ def replay_plan(numeric, scale="paper", device="cuda"):
     )
 
 
+# -- phase 6: the LM serving path ---------------------------------------------
+# On CPU tensors ``ops`` takes the plain versions, so these also run, at the
+# reduced size, in the CPU tests.
+
+def jax_layout_params(cfg, seed: int) -> dict:
+    """fp32 numpy weights of ``cfg`` in the JAX package's parameter tree
+    layout (``{"emb", "ln_f", ["unemb"], "segments": [one stacked dict]}``),
+    drawn from ``default_rng(seed)`` at the scales of its init (the card
+    has no JAX to draw its own); norm gains 1 + N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+
+    def normal(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def gain(*shape):
+        return 1 + normal(*shape, scale=0.1)
+
+    attn = {"wq": normal(n, d, cfg.n_heads * dh, scale=d ** -0.5),
+            "wk": normal(n, d, cfg.n_kv_heads * dh, scale=d ** -0.5),
+            "wv": normal(n, d, cfg.n_kv_heads * dh, scale=d ** -0.5),
+            "wo": normal(n, cfg.n_heads * dh, d,
+                         scale=(cfg.n_heads * dh) ** -0.5)}
+    if cfg.qk_norm:
+        attn.update(q_norm=gain(n, dh), k_norm=gain(n, dh))
+    seg = {"ln1": gain(n, d), "attn": attn, "ln2": gain(n, d),
+           "mlp": {"w1": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+                   "w3": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+                   "w2": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5)}}
+    tree = {"emb": normal(cfg.vocab, d, scale=0.02), "ln_f": gain(d),
+            "segments": [seg]}
+    if not cfg.tie_embeddings:
+        tree["unemb"] = normal(d, cfg.vocab, scale=d ** -0.5)
+    return tree
+
+
+def pinned_config():
+    """Reduced tinyllama-1.1b (4 layers, d 128, 4 heads, 1 KV head,
+    dh 16) in fp32."""
+    return dataclasses.replace(configs.get(SERVE_ARCH).reduced(),
+                               dtype="float32")
+
+
+def serve_pinned(device) -> list:
+    """The serving loop on the pinned config and weights: each request's
+    greedy tokens, in request order."""
+    cfg = pinned_config()
+    params = M.params_from_numpy(cfg, jax_layout_params(cfg, seed=0),
+                                 device)
+    p = SERVE_PINNED
+    requests = make_requests(cfg, p["n_requests"], p["prompt_len"],
+                             p["max_new"], seed=0)
+    done = serve_requests(cfg, params, requests, p["batch"],
+                          p["prompt_len"], p["max_new"], device)
+    return [r.generated for r in done]
+
+
+def token_digests(tokens) -> list:
+    return [output_digest([np.asarray(t, dtype=np.int32)]) for t in tokens]
+
+
+@contextlib.contextmanager
+def attention_through(fn):
+    """Route the model's attention calls (``ops.flash_attention``, which
+    ``models/layers.py`` looks up at each call) through ``fn`` for the
+    duration."""
+    kernel = ops.flash_attention
+    ops.flash_attention = fn
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def serve_recorded(cfg, params, p, device):
+    """The serving loop with every attention call's operands and result
+    kept: (tokens per request, [(q, k, v, causal, out)])."""
+    calls = []
+    kernel = ops.flash_attention
+
+    def record(q, k, v, causal=True, scale=None):
+        out = kernel(q, k, v, causal=causal, scale=scale)
+        calls.append((q, k, v, causal, out))
+        return out
+
+    with attention_through(record):
+        done = serve_requests(cfg, params,
+                              make_requests(cfg, p["n_requests"],
+                                            p["prompt_len"], p["max_new"]),
+                              p["batch"], p["prompt_len"], p["max_new"],
+                              device)
+    return [r.generated for r in done], calls
+
+
+def serve_plain(cfg, params, p, device):
+    """The serving loop with attention through the kernel's plain version
+    (tokens per request): the yardstick of the kernel path's tokens."""
+    with attention_through(ref.flash_attention_plain):
+        done = serve_requests(cfg, params,
+                              make_requests(cfg, p["n_requests"],
+                                            p["prompt_len"], p["max_new"]),
+                              p["batch"], p["prompt_len"], p["max_new"],
+                              device)
+    return [r.generated for r in done]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -465,13 +624,18 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------
     phase("build")
-    info = _build.build()
-    print(f"built {info['path']} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    _build.library()
-    sass_report(info["path"], _build.find_nvcc())
+    t0 = time.perf_counter()
+    infos = _build.build()
+    print(f"built {len(infos)} libraries in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for stem, info in infos.items():
+        print(f"built {info['path']} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or \
+                    "entry function" in line:
+                print("  ptxas:", line.strip())
+        _build.library(stem)
+        sass_report(info["path"], _build.find_nvcc())
 
     # -- 3. kernels vs plain versions --------------------------------------
     phase("kernels")
@@ -555,6 +719,27 @@ def main() -> int:
                 raise AssertionError(f"int8_matmul {shape} all -128: not "
                                      f"the int32-wrapped {wrapped}")
     print(f"{len(cases)} cases: every kernel equal to its plain version")
+
+    # flash attention: fp32 and bf16, causal or not, against the plain
+    # version at ATTN_TOL
+    n_attn = 0
+    for (h, sq, sk, dh), causal, dtype in itertools.product(
+            ATTN_CASES, (True, False), ATTN_TOL):
+        q, k, v = (torch.from_numpy(rng.standard_normal((h, s_, dh)).astype(
+            np.float32)).to("cuda", dtype) for s_ in (sq, sk, sk))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != dtype or not torch.allclose(
+                got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention {(h, sq, sk, dh)} causal="
+                                 f"{causal} {dtype}: max |kernel - plain| "
+                                 f"{err!r} over the tolerance {tol}")
+        n_attn += 1
+    print(f"{n_attn} flash_attention cases within tolerance (fp32 "
+          f"{ATTN_TOL[torch.float32]}, bf16 {ATTN_TOL[torch.bfloat16]})")
 
     # Timing at the shapes the replays give each kernel (first listed per
     # kernel is its record).  Bound: the least time for the function each
@@ -672,6 +857,58 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
 
+    # flash attention at the serving shape: the prefill of one batch of the
+    # full-width run (B 4 x H 32 heads, prompt 1024, dh 64, causal), bf16,
+    # then fp32 for information.  Bound: q, k, v and out once over HBM, or
+    # the causal pairs' 4 dh flops (two products) over the bf16
+    # tensor-core peak.  Library: PyTorch's fused attention
+    # (scaled_dot_product_attention, is_causal=True: top-left), which the
+    # port never calls.
+    full = configs.get(SERVE_ARCH)
+    heads = SERVE_FULL["batch"] * full.n_heads
+    sq, dh = SERVE_FULL["prompt_len"], full.head_dim
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(rng.standard_normal((heads, sq, dh))
+                                    .astype(np.float32)).to("cuda", dtype)
+                   for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_plain(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dtype]
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention serving shape {dtype}: "
+                                 f"max |kernel - plain| {err!r}")
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20,
+                     clock_hz)
+        plain_ms = time_ms(lambda: ref.flash_attention_plain(
+            q, k, v, causal=True), 2, clock_hz, rounds=3)
+        # [1, heads, S, dh] views: the fused backends take 4-D inputs
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(q[None], k[None], v[None],
+                                      is_causal=True), 20, clock_hz)
+        nbytes = 4 * q.numel() * q.element_size()
+        flops = 4 * dh * heads * sq * (sq + 1) // 2
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / (BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16
+                          else FP32_FLOPS_PER_S) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"flash_attention serving {[heads, sq, dh]} {dtype} causal "
+              f"kernel {ms:.6f} ms  plain {plain_ms:.6f} ms  library (sdpa) "
+              f"{lib_ms:.6f} ms  bound {bound_ms:.6f} ms ({bound_by}; bytes "
+              f"{bytes_ms:.6f}, ops {ops_ms:.6f}: {flops} flops)  "
+              f"max_abs_err {err!r}  [{card}]", flush=True)
+        if dtype == torch.bfloat16:
+            records["flash_attention"] = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/attention.cu",
+                "replaces": REPLACES["flash_attention"], "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+            attn_ms = ms
+        del q, k, v, got, want
+
     # -- 4. pipeline: each workload at paper scale through the entry points
     phase("pipeline")
     ops.reset_launch_counts()
@@ -735,9 +972,109 @@ def main() -> int:
                                  f"{want_counts}")
         for k, c in launched.items():
             records[k]["launches"] += c
+
+    # -- 6. the LM serving path ---------------------------------------------
+    phase("serve")
+    # (a) pinned: reduced, fp32, weights in the JAX layout from a seed
+    ops.reset_launch_counts()
+    tokens = serve_pinned("cuda")
+    launched = ops.launch_counts()
+    digests = token_digests(tokens)
+    cfg = pinned_config()
+    want_launches = cfg.n_layers * -(-SERVE_PINNED["n_requests"]
+                                      // SERVE_PINNED["batch"])
+    print(f"pinned serve (reduced {SERVE_ARCH}, fp32): tokens {tokens}, "
+          f"flash_attention launches {launched['flash_attention']}")
+    if digests != SERVE_REFERENCE["tokens_sha256"]:
+        raise AssertionError(f"pinned serve tokens differ from the JAX "
+                             f"package's: {digests}")
+    if launched != {**{k: 0 for k in launched},
+                    "flash_attention": want_launches}:
+        raise AssertionError(f"pinned serve launches {launched}, want "
+                             f"{want_launches} flash_attention")
+
+    # (b) full width and depth, bf16.  First a run that records every
+    # attention call and holds it against the plain version, then the same
+    # with attention through the plain version (its tokens are information
+    # only: bf16 rounds the two paths differently), then the timed run
+    # through the serve entry point, whose launches the record reports.
+    want_launches = full.n_layers * -(-SERVE_FULL["n_requests"]
+                                       // SERVE_FULL["batch"])
+    params = M.init_params(full, torch.Generator("cuda").manual_seed(0))
+    ops.reset_launch_counts()
+    tokens_k6, calls = serve_recorded(full, params, SERVE_FULL, "cuda")
+    launched = ops.launch_counts()["flash_attention"]
+    if launched != want_launches or len(calls) != want_launches:
+        raise AssertionError(f"full serve: {launched} flash_attention "
+                             f"launches, {len(calls)} calls; want "
+                             f"{want_launches}")
+    worst = 0.0
+    for q, k, v, causal, out in calls:
+        want = ref.flash_attention_plain(q, k, v, causal=causal)
+        err = float((out.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        tol = ATTN_TOL[q.dtype]
+        if not torch.allclose(out.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"full serve: a flash_attention call "
+                                 f"{tuple(q.shape)} is off by {err!r}")
+    print(f"full serve: {len(calls)} flash_attention calls of "
+          f"{tuple(calls[0][0].shape)} {calls[0][0].dtype}, each within "
+          f"{ATTN_TOL[torch.bfloat16]} of the plain version (max |diff| "
+          f"{worst!r})")
+    del calls
+    ops.reset_launch_counts()
+    tokens_plain = serve_plain(full, params, SERVE_FULL, "cuda")
+    if ops.launch_counts()["flash_attention"]:
+        raise AssertionError("the plain-path serve launched the kernel")
+    same = sum(a == b for a, b in zip(itertools.chain(*tokens_k6),
+                                      itertools.chain(*tokens_plain)))
+    print(f"full serve tokens, kernel path: {tokens_k6}")
+    print(f"full serve tokens, plain path:  {tokens_plain}")
+    print(f"  {same} of {sum(map(len, tokens_k6))} tokens equal "
+          f"(information only)")
+    # what the card must do at least: read every weight once a decode
+    # step; the prefill's matrix products at the bf16 peak
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in pytree.tree_leaves(params))
+    layer_macs = (full.d_model * (full.n_heads + 2 * full.n_kv_heads)
+                  * full.head_dim + full.n_heads * full.head_dim
+                  * full.d_model + 3 * full.d_model * full.d_ff)
+    prefill_flops = (2 * SERVE_FULL["batch"] * SERVE_FULL["prompt_len"]
+                     * full.n_layers * layer_macs)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve(SERVE_ARCH, reduced=False, seed=0, **SERVE_FULL)
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launched != {**{k: 0 for k in launched},
+                    "flash_attention": want_launches}:
+        raise AssertionError(f"full serve launches {launched}, want "
+                             f"{want_launches} flash_attention")
+    if res["requests"] != SERVE_FULL["n_requests"] or res["tokens"] != \
+            SERVE_FULL["n_requests"] * SERVE_FULL["max_new"]:
+        raise AssertionError(f"full serve finished {res}")
+    batches = -(-SERVE_FULL["n_requests"] // SERVE_FULL["batch"])
+    steps = batches * (SERVE_FULL["max_new"] - 1)
+    print(f"full serve ({SERVE_ARCH}, {full.n_layers} layers, d "
+          f"{full.d_model}, bf16, {SERVE_FULL}) on [{card}]: "
+          f"{json.dumps(res)}; peak memory {peak} B; flash_attention "
+          f"launches {launched['flash_attention']}; the kernel's time at "
+          f"this shape x {full.n_layers} layers is "
+          f"{attn_ms * full.n_layers:.3f} ms of a batch's "
+          f"{res['prefill_s'] / batches * 1e3:.3f} ms prefill wall time; "
+          f"decode {res['decode_s'] / steps * 1e3:.3f} ms a step "
+          f"({steps} steps); reading the {weight_bytes} B of weights once "
+          f"takes {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; a batch's "
+          f"prefill matrix products, {prefill_flops} flops, take "
+          f"{prefill_flops / BF16_TENSOR_FLOPS_PER_S * 1e3:.3f} ms at the "
+          f"bf16 peak")
+    records["flash_attention"]["launches"] = launched["flash_attention"]
+
     unused = [k for k, r in records.items() if r["launches"] == 0]
     if unused:
-        raise AssertionError(f"no replay launched {unused}")
+        raise AssertionError(f"no replay or serve launched {unused}")
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,13 @@
+"""qwen2-vl-2b [vlm]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
+vocab=151936 — M-RoPE, dynamic resolution; vision frontend is a STUB
+(input_specs provides precomputed patch embeddings).  [arXiv:2409.12191; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-vl-2b", family="vlm",
+    n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2,
+    d_ff=8960, vocab=151936,
+    mrope=True, frontend="vision_patches",
+    tie_embeddings=True,
+    source="arXiv:2409.12191; hf",
+)

@@ -1,11 +1,12 @@
-"""Build, load and call the hand-written CUDA kernels (``csrc/ndp.cu``).
+"""Build, load and call the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source has a plain C interface, so it is compiled with ``nvcc`` alone
-(no PyTorch headers: seconds, not minutes) into a shared library and bound
-with ``ctypes``.  The build runs at first use, never at import, into
-``build/repro_torch/`` at the root of the checkout; the library's name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded.
+Each source has a plain C interface, so it is compiled with ``nvcc`` alone
+(no PyTorch headers: seconds, not minutes) into a shared library of its
+own and bound with ``ctypes``.  The build runs at first use, never at
+import, into ``build/repro_torch/`` at the root of the checkout, one
+``nvcc`` per source, all started together; a library's name carries a
+hash of its source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -17,28 +18,38 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "ndp.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
-# name -> argtypes; every function returns a cudaError_t as int
+_I = ctypes.c_int
+_F = ctypes.c_float
+# source stem -> {C entry point -> argtypes}; every entry point returns a
+# cudaError_t as int
 SIGNATURES = {
-    "ndp_bitserial_add_i8": (_P, _P, _P, _N, _P),
-    "ndp_bitserial_add_i32": (_P, _P, _P, _N, _P),
-    "ndp_bitserial_mul_i8": (_P, _P, _P, _N, _P),
-    "ndp_bitserial_mul_i32": (_P, _P, _P, _N, _P),
-    "ndp_shift_add_mul_i32": (_P, _P, _P, _N, ctypes.c_int, _P),
-    "ndp_mws_i8": (_P, _P, _N, _N, ctypes.c_int, _P),
-    "ndp_mws_i32": (_P, _P, _N, _N, ctypes.c_int, _P),
-    "ndp_search_i32": (_P, _P, _P, _N, ctypes.c_int, _P),
-    "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _P),
+    "ndp": {
+        "ndp_bitserial_add_i8": (_P, _P, _P, _N, _P),
+        "ndp_bitserial_add_i32": (_P, _P, _P, _N, _P),
+        "ndp_bitserial_mul_i8": (_P, _P, _P, _N, _P),
+        "ndp_bitserial_mul_i32": (_P, _P, _P, _N, _P),
+        "ndp_shift_add_mul_i32": (_P, _P, _P, _N, _I, _P),
+        "ndp_mws_i8": (_P, _P, _N, _N, _I, _P),
+        "ndp_mws_i32": (_P, _P, _N, _N, _I, _P),
+        "ndp_search_i32": (_P, _P, _P, _N, _I, _P),
+        "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _P),
+    },
+    # q, k, v, out, heads, sq, sk, dh, causal, scale * log2(e), stream
+    "attention": {
+        "ndp_flash_attn_f32": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
+        "ndp_flash_attn_bf16": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
+    },
 }
+_SOURCE_OF = {fn: stem for stem, fns in SIGNATURES.items() for fn in fns}
 
 
 def find_nvcc() -> Optional[str]:
@@ -52,46 +63,60 @@ def find_nvcc() -> Optional[str]:
     return str(cand) if cand.is_file() else None
 
 
-def library_path() -> pathlib.Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
+def library_path(stem: str) -> pathlib.Path:
+    source = CSRC / f"{stem}.cu"
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libndp-{key}.so"
+    return BUILD_DIR / f"lib{stem}-{key}.so"
 
 
 @functools.lru_cache(maxsize=1)
-def build() -> dict:
-    """Compile ``ndp.cu`` unless this source's library is already built.
+def build() -> Dict[str, dict]:
+    """Compile every source of :data:`SIGNATURES` whose library is not
+    built yet, one ``nvcc`` per source, all running at once.
 
-    Returns ``{"path", "seconds", "log"}``: ``seconds`` is 0.0 and ``log``
-    empty when the library was already there; ``log`` holds ``ptxas``'s
-    per-kernel register and spill report otherwise.
+    Returns ``{stem: {"path", "seconds", "log"}}``: ``seconds`` is 0.0 and
+    ``log`` empty for a library that was already there; ``log`` holds
+    ``ptxas``'s per-kernel register and spill report otherwise.
     """
-    out = library_path()
-    if out.is_file():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)"
-                           ": cannot build the CUDA kernels")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    result, running = {}, {}
+    for stem in SIGNATURES:
+        out = library_path(stem)
+        if out.is_file():
+            result[stem] = {"path": str(out), "seconds": 0.0, "log": ""}
+            continue
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError("nvcc not found (PATH, CUDA_HOME, "
+                               "/usr/local/cuda): cannot build the CUDA "
+                               "kernels")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[stem] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for stem, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+        result[stem] = {"path": str(out), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if need be."""
-    lib = ctypes.CDLL(build()["path"])
-    for name, argtypes in SIGNATURES.items():
+@functools.lru_cache(maxsize=None)
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded kernel library of ``csrc/<stem>.cu``, built first (with
+    every other source) if need be."""
+    lib = ctypes.CDLL(build()[stem]["path"])
+    for name, argtypes in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -124,7 +149,7 @@ def check_pair(a, b, dtypes, name: str) -> None:
 
 def call(fn_name: str, *args) -> None:
     """Call one C entry point; raise if its launch was refused."""
-    err = getattr(library(), fn_name)(*args)
+    err = getattr(library(_SOURCE_OF[fn_name]), fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed, cudaError_t "
                            f"{err}")

@@ -4,8 +4,10 @@ Keeps the JAX package's ``repro.kernels.ops`` contract: 2-D ``[rows,
 cols]`` operands of one shape, int8 or int32 (int32 for
 ``shift_add_mul``); a ``[n_ops, rows, cols]`` int8 or int32 stack for
 ``mws_bitwise``; an int32 ``[rows, words]`` stack and ``[wpr]`` query
-for ``search_pages``; int8 ``[M, K]`` and ``[K, N]`` for ``int8_matmul``.
-Any rows and cols — there is no tiling to pad to.
+for ``search_pages``; int8 ``[M, K]`` and ``[K, N]`` for ``int8_matmul``;
+fp32 or bf16 ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with dh 16, 32, 64
+or 128 for ``flash_attention``.  Any rows and cols, any Sq and Sk — there
+is no tiling to pad to.
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor is
 computed by the kernel's plain PyTorch version (:mod:`.ref`); a CUDA
@@ -16,8 +18,11 @@ from __future__ import annotations
 
 from typing import Dict
 
+import math
+
 import torch
 
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import int8_matmul as _int8_matmul
 from repro_torch.kernels import mws as _mws
@@ -113,6 +118,39 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ref.int8_matmul_plain(a, b)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention over ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with an
+    online softmax; ``scale`` defaults to 1/sqrt(dh); the causal mask keeps
+    ``q_pos >= k_pos`` (top-left, as the JAX package's kernel)."""
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or \
+            q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
+        raise ValueError(f"flash_attention: expected q [H, Sq, dh] and k, v "
+                         f"[H, Sk, dh], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[2] not in _attention.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {q.shape[2]} not one "
+                         f"of {_attention.HEAD_DIMS}")
+    if q.shape[1] < 1 or k.shape[1] < 1:
+        raise ValueError(f"flash_attention: empty sequence, Sq "
+                         f"{q.shape[1]}, Sk {k.shape[1]}")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or \
+            q.dtype not in _attention.DTYPES:
+        raise TypeError(f"flash_attention: expected one dtype of "
+                        f"{_attention.DTYPES}, got {q.dtype}, {k.dtype} and "
+                        f"{v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"flash_attention: operands on {q.device}, "
+                         f"{k.device} and {v.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    if q.is_cuda:
+        return _attention.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal, scale)
+    return ref.flash_attention_plain(q, k, v, causal, scale)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"bitserial_add": _bitserial.ADD_LAUNCHES,
@@ -120,7 +158,8 @@ def launch_counts() -> Dict[str, int]:
             "shift_add_mul": _shift_add.LAUNCHES,
             "mws_bitwise": _mws.LAUNCHES,
             "search_pages": _search.LAUNCHES,
-            "int8_matmul": _int8_matmul.LAUNCHES}
+            "int8_matmul": _int8_matmul.LAUNCHES,
+            "flash_attention": _attention.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -130,3 +169,4 @@ def reset_launch_counts() -> None:
     _mws.LAUNCHES = 0
     _search.LAUNCHES = 0
     _int8_matmul.LAUNCHES = 0
+    _attention.LAUNCHES = 0

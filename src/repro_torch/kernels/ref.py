@@ -13,10 +13,16 @@ For each kernel two functions, mirroring ``repro.kernels.ref``:
 
 Integer tensors wrap on overflow, as the JAX package's int8/int32 arrays
 do, so all of these are exact.
+
+Attention has only its plain version, :func:`flash_attention_plain`, which
+is also its specification: the JAX package's oracle ``ref_attention``
+aligns the causal mask bottom-right where its kernel aligns it top-left
+(ROADMAP R1), and the port follows the kernel.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -142,3 +148,26 @@ def ref_search(stack: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     rows, words = stack.shape
     recv = stack.reshape(rows, words // query.shape[0], query.shape[0])
     return (recv == query).all(dim=-1)
+
+
+# the masked logit of the JAX package's attention kernel: exp(-1e30 - m)
+# is 0 in fp32 for any row maximum m
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
+    """Softmax attention over ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]``: the
+    whole ``[H, Sq, Sk]`` logits in fp32, the causal mask ``q_pos >= k_pos``
+    aligned top-left (as the kernel's), the probabilities kept in fp32 for
+    the product with v, and the output cast to q's type."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        logits = logits.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", probs, v.float()).to(q.dtype)

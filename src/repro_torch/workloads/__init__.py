@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.trace import Trace
 from repro_torch.core.vectorize import vectorize
+from repro_torch.device import resolve_device
 from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
 from repro_torch.sim.machine import SimConfig
 from repro_torch.workloads import (aes, heat3d, jacobi1d, llama2_infer,
@@ -36,18 +37,6 @@ WORKLOADS = {
     "jacobi1d": jacobi1d,
     "llama2_infer": llama2_infer,
 }
-
-
-def resolve_device(device: Optional[torch.device | str]) -> torch.device:
-    """``None`` means the GPU; without one that is an error, never a
-    quiet fall-back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def make_inputs(name: str, scale: str = "paper", seed: int = 0,

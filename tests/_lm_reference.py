@@ -1,0 +1,64 @@
+"""The JAX package's LM serving path, run on numpy inputs, for the tests
+that hold the PyTorch port against it (``tests/test_torch_*.py``).
+
+Both packages get their inputs as numpy arrays: a JAX parameter tree goes
+to the port through ``repro_torch.models.model.params_from_numpy``.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro import configs as repro_configs
+from repro.launch.steps import build_prefill_step, build_serve_step
+from repro.models import model as RM
+
+# the dense configs the port's model runs, each reduced for the CPU:
+# tinyllama-1.1b (GQA), qwen3-4b (qk-norm, tied embeddings), llama2-7b (MHA)
+DENSE_ARCHS = ("tinyllama-1.1b", "qwen3-4b", "llama2-7b")
+
+
+def jax_config(arch: str, dtype: str = "float32"):
+    return dataclasses.replace(repro_configs.get(arch).reduced(), dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_params(arch: str, seed: int = 1):
+    """The JAX package's initial parameters of reduced ``arch`` in fp32,
+    as a tree of numpy arrays."""
+    cfg = jax_config(arch)
+    params = jax.jit(RM.init_params, static_argnums=0)(
+        cfg, jax.random.PRNGKey(seed))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def serve_tokens(cfg, tree, prompts, batch: int, prompt_len: int,
+                 max_new: int):
+    """The greedy tokens of every request, in order, from the loop of
+    ``repro/launch/serve.py`` (its ``serve``, lines 57-78) with the JAX
+    package's prefill and serve steps on the parameter tree ``tree``."""
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    prefill_fn = jax.jit(build_prefill_step(cfg))
+    serve_fn = jax.jit(build_serve_step(cfg))
+    out = []
+    queue = list(prompts)
+    while queue:
+        active = [queue.pop(0) for _ in range(min(batch, len(queue)))]
+        generated = [[] for _ in active]
+        tokens = jnp.asarray(np.stack(active))
+        caches = RM.init_cache(cfg, len(active), prompt_len + max_new)
+        logits, caches = prefill_fn(params, caches, {"tokens": tokens})
+        nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+        for step in range(max_new):
+            for gen, tok in zip(generated, np.asarray(nxt)):
+                if len(gen) < max_new:
+                    gen.append(int(tok))
+            if all(len(gen) >= max_new for gen in generated):
+                break
+            logits, caches = serve_fn(params, caches, nxt,
+                                      jnp.int32(prompt_len + step))
+            nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out += generated
+    return out

@@ -2,6 +2,7 @@
 JAX package, and its kernel replays rehearsed at "tiny" scale, where
 ``ops`` takes the kernels' plain versions (the card runs them at "paper"
 through the CUDA kernels)."""
+import dataclasses
 import pathlib
 import sys
 
@@ -54,3 +55,51 @@ def test_replay_equals_the_numeric_run_on_the_cpu(label, tiny_numeric):
     assert torch.equal(got, want)
     assert ops.launch_counts() == before           # plain versions only
     assert any(want_counts.values())
+
+
+# -- phase 6: the LM serving path ---------------------------------------------
+
+def test_serve_reference_is_the_jax_packages():
+    """The pinned digests are those of the JAX package's prefill and serve
+    steps, in its serving loop, on the smoke's numpy weights and the
+    prompts of its ``serve(seed=0)``."""
+    from _lm_reference import jax_config, serve_tokens
+    cfg = chip_smoke.pinned_config()
+    cfg_j = jax_config(chip_smoke.SERVE_ARCH)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    p = chip_smoke.SERVE_PINNED
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=p["prompt_len"],
+                            dtype=np.int32) for _ in range(p["n_requests"])]
+    tokens = serve_tokens(cfg_j, chip_smoke.jax_layout_params(cfg, seed=0),
+                          prompts, p["batch"], p["prompt_len"],
+                          p["max_new"])
+    assert (chip_smoke.token_digests(tokens)
+            == chip_smoke.SERVE_REFERENCE["tokens_sha256"])
+
+
+def test_pinned_serve_equals_the_reference_on_the_cpu():
+    before = ops.launch_counts()
+    tokens = chip_smoke.serve_pinned("cpu")
+    assert ops.launch_counts() == before            # plain versions only
+    assert (chip_smoke.token_digests(tokens)
+            == chip_smoke.SERVE_REFERENCE["tokens_sha256"])
+
+
+def test_serve_phase_rehearsed_on_the_cpu():
+    """The full-width phase's plumbing at the reduced size: one recorded
+    attention call per layer and batch, each equal to the plain version
+    on the CPU, and the plain path serving the same tokens."""
+    from repro_torch.models import model as M
+    cfg = chip_smoke.pinned_config()
+    p = dict(chip_smoke.SERVE_FULL, prompt_len=16, max_new=3)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens, calls = chip_smoke.serve_recorded(cfg, params, p, "cpu")
+    assert len(calls) == cfg.n_layers * -(-p["n_requests"] // p["batch"])
+    q, k, v, causal, out = calls[0]
+    assert q.shape == (p["batch"] * cfg.n_heads, p["prompt_len"],
+                       cfg.head_dim) and causal
+    assert torch.equal(out, chip_smoke.ref.flash_attention_plain(q, k, v))
+    assert chip_smoke.ops.flash_attention is ops.flash_attention
+    assert chip_smoke.serve_plain(cfg, params, p, "cpu") == tokens
+    assert all(len(t) == p["max_new"] for t in tokens)

@@ -87,3 +87,23 @@ def test_cpu_is_given_only_when_asked():
     a, b = workloads.make_inputs("jacobi1d", "tiny", device="cpu")
     assert a.device.type == "cpu" and b.device.type == "cpu"
     assert workloads.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_without_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve("tinyllama-1.1b", 1, 1, 4, 1)
+
+
+def test_lm_modules_are_covered():
+    """The isolation scan reaches the LM slice's modules and the kernel's
+    CUDA source sits beside the others."""
+    names = {_module_name(p) for p in PORT_FILES}
+    assert {"repro_torch.models.model", "repro_torch.models.layers",
+            "repro_torch.models.config", "repro_torch.configs",
+            "repro_torch.configs.tinyllama_1_1b", "repro_torch.launch.serve",
+            "repro_torch.launch.steps", "repro_torch.kernels.attention"} \
+        <= names
+    assert (PORT / "kernels" / "csrc" / "attention.cu").is_file()

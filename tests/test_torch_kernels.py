@@ -10,8 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (_build, bitserial, int8_matmul,  # noqa: E402
-                                 mws, ops, ref, search, shift_add)
+from repro_torch.kernels import (_build, attention, bitserial,  # noqa: E402
+                                 int8_matmul, mws, ops, ref, search,
+                                 shift_add)
 
 # the grids of tests/test_kernels.py
 INT_SHAPES = [(8, 128), (16, 256), (8, 512), (24, 384), (64, 128)]
@@ -258,11 +259,30 @@ def test_search_on_cpu_takes_any_rows_and_launches_nothing(wpr):
                             torch.zeros(8, 3, dtype=torch.uint8)),
     lambda: ops.int8_matmul(torch.zeros(0, 8, dtype=torch.int8),
                             torch.zeros(8, 3, dtype=torch.int8)),
+    lambda: ops.flash_attention(*[torch.zeros(2, 8, 48)] * 3),
+    lambda: ops.flash_attention(*[torch.zeros(2, 8, 16,
+                                              dtype=torch.float16)] * 3),
+    lambda: ops.flash_attention(torch.zeros(2, 8, 16),
+                                torch.zeros(2, 8, 16, dtype=torch.bfloat16),
+                                torch.zeros(2, 8, 16)),
+    lambda: ops.flash_attention(torch.zeros(2, 8, 16), torch.zeros(2, 8, 16),
+                                torch.zeros(2, 9, 16)),
+    lambda: ops.flash_attention(torch.zeros(2, 8, 16), torch.zeros(3, 8, 16),
+                                torch.zeros(3, 8, 16)),
+    lambda: ops.flash_attention(torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 2, 8, 16)),
+    lambda: ops.flash_attention(torch.zeros(2, 0, 16), torch.zeros(2, 8, 16),
+                                torch.zeros(2, 8, 16)),
+    lambda: ops.flash_attention(torch.zeros(2, 8, 16), torch.zeros(2, 0, 16),
+                                torch.zeros(2, 0, 16)),
 ], ids=["1d", "shapes", "float", "mixed_dtypes", "shift_add_int8",
         "mws_2d", "mws_float", "mws_int16", "mws_op", "search_ragged",
         "search_int8", "search_query_2d", "search_empty_query",
         "matmul_inner_dims", "matmul_1d", "matmul_int32", "matmul_uint8",
-        "matmul_empty"])
+        "matmul_empty", "attn_dh48", "attn_fp16", "attn_mixed_dtypes",
+        "attn_kv_shapes", "attn_heads", "attn_4d", "attn_empty_q",
+        "attn_empty_k"])
 def test_ops_reject_what_the_contract_excludes(call):
     with pytest.raises((ValueError, TypeError)):
         call()
@@ -276,8 +296,10 @@ def test_ops_reject_what_the_contract_excludes(call):
     lambda a: search.search_pages(a, a[0, :4].contiguous()),
     lambda a: int8_matmul.int8_matmul(a.to(torch.int8),
                                       a.to(torch.int8).T.contiguous()),
+    lambda a: attention.flash_attention(*[a.float().reshape(2, 32, 16)] * 3,
+                                        causal=True, scale=0.25),
 ], ids=["bitserial_add", "bitserial_mul", "shift_add_mul", "mws_bitwise",
-        "search_pages", "int8_matmul"])
+        "search_pages", "int8_matmul", "flash_attention"])
 def test_kernel_wrappers_never_fall_back_to_the_cpu(launch):
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
@@ -341,7 +363,7 @@ def test_cuda_kernels_equal_their_plain_versions():
                                    "shift_add_mul": len(SHIFT_GRID),
                                    "mws_bitwise": len(MWS_GRID),
                                    "search_pages": len(SEARCH_GRID),
-                                   "int8_matmul": 0}
+                                   "int8_matmul": 0, "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -370,3 +392,126 @@ def test_cuda_int8_matmul_equals_its_plain_version():
     torch.cuda.synchronize()
     assert bool((got == -2 ** 31).all())
     assert ops.launch_counts()["int8_matmul"] == len(shapes) + 2
+
+
+# -- K6 flash attention -------------------------------------------------------
+# (h, s, dh): the attention grid of tests/test_kernels.py
+ATTN_GRID = [(2, 64, 32), (1, 128, 64), (4, 32, 16)]
+# the smoke's cases beyond the grid: causal Sq != Sk, ragged lengths, and
+# dh 128 (qwen3-4b); (h, sq, sk, dh)
+ATTN_CROSS = [(2, 32, 128, 32), (3, 13, 37, 64), (2, 37, 13, 16),
+              (1, 24, 40, 128)]
+
+
+def _qkv(h, sq, sk, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(h, sq, dh)).astype(np.float32),
+            rng.normal(size=(h, sk, dh)).astype(np.float32),
+            rng.normal(size=(h, sk, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,s,d", ATTN_GRID)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_equals_repro_pallas_and_oracle(h, s, d,
+                                                              causal):
+    """fp32 at tests/test_kernels.py's tolerance (3e-5): the Pallas kernel
+    (interpret mode) and, at Sq = Sk where their causal masks agree, the
+    JAX package's oracle."""
+    jnp, repro_ops, repro_ref = _reference()
+    q, k, v = _qkv(h, s, s, d)
+    got = ref.flash_attention_plain(_t(q), _t(k), _t(v), causal=causal)
+    for want in (repro_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), causal=causal),
+                 repro_ref.ref_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=causal)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_follows_the_pallas_kernel_at_sq_ne_sk(causal):
+    """Sq 32, Sk 128: the causal mask is aligned top-left, as the Pallas
+    kernel aligns it (ROADMAP R1)."""
+    from repro.kernels import attention as repro_attention
+    jnp, _, _ = _reference()
+    q, k, v = _qkv(2, 32, 128, 32, seed=3)
+    want = repro_attention.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=32, block_k=32, interpret=True)
+    got = ref.flash_attention_plain(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5,
+                               rtol=3e-5)
+
+
+def test_flash_attention_plain_pins_r1_against_the_oracle():
+    """ROADMAP R1: at h 2, Sq 32, Sk 128, dh 32 the JAX package's oracle
+    aligns the causal mask bottom-right, so it sees up to 96 more keys per
+    row than the kernel and the port; only the last row agrees."""
+    jnp, _, repro_ref = _reference()
+    q, k, v = _qkv(2, 32, 128, 32, seed=3)
+    oracle = np.asarray(repro_ref.ref_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    got = ref.flash_attention_plain(_t(q), _t(k), _t(v), causal=True).numpy()
+    assert np.abs(got - oracle).max() > 0.5
+    # the oracle's mask is the kernel's shifted by Sk - Sq
+    shifted = ref.flash_attention_plain(
+        _t(np.pad(q, ((0, 0), (96, 0), (0, 0)))), _t(k), _t(v),
+        causal=True)[:, 96:].numpy()
+    np.testing.assert_allclose(shifted, oracle, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_attention_plain_bf16_is_within_one_ulp_of_pallas():
+    """bf16 operands: both compute in fp32 and round the output once, so
+    they differ by at most one bf16 ulp (atol/rtol 1e-2)."""
+    from repro.kernels import attention as repro_attention
+    jnp, _, _ = _reference()
+    q, k, v = _qkv(4, 64, 64, 64, seed=7)
+    want = repro_attention.flash_attention(
+        *(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=32, block_k=32, interpret=True)
+    got = ref.flash_attention_plain(
+        *(_t(x).to(torch.bfloat16) for x in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, dtype=np.float32),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("h,sq,sk,dh", ATTN_CROSS)
+def test_flash_attention_on_cpu_takes_any_lengths_and_launches_nothing(
+        h, sq, sk, dh):
+    before = ops.launch_counts()
+    q, k, v = (_t(x) for x in _qkv(h, sq, sk, dh, seed=5))
+    got = ops.flash_attention(q, k, v, causal=True, scale=0.3)
+    assert got.shape == (h, sq, dh) and got.dtype == torch.float32
+    assert torch.equal(got, ref.flash_attention_plain(q, k, v, True, 0.3))
+    # ops takes strided views as they come
+    assert torch.equal(ops.flash_attention(q.transpose(0, 1).contiguous()
+                                           .transpose(0, 1), k, v,
+                                           causal=True, scale=0.3), got)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_equals_its_plain_version():
+    """K6 on the card, fp32 at 3e-5 and bf16 at 1e-2 (one bf16 ulp), over
+    the test grid and the cross, ragged and dh-128 cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/attention.cu: not found")
+    ops.reset_launch_counts()
+    cases = [(h, s, s, d) for h, s, d in ATTN_GRID] + ATTN_CROSS
+    n = 0
+    for h, sq, sk, dh in cases:
+        for causal in (True, False):
+            for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 1e-2)):
+                q, k, v = (_t(x).to("cuda", dtype)
+                           for x in _qkv(h, sq, sk, dh, seed=n))
+                got = ops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = ref.flash_attention_plain(q, k, v, causal=causal)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+                n += 1
+    assert ops.launch_counts()["flash_attention"] == n
