@@ -9,10 +9,13 @@ last line:
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` name/count;
 2. build  — ``csrc/ndp.cu`` compiled for sm_90a from this checkout;
 3. kernels — each CUDA kernel held exactly equal to its plain PyTorch
-   version over the kernel-test grids and the shapes the replays give it,
-   with CUDA-event times of the kernel, the plain version and the one
-   PyTorch call that computes the same function, beside the card's least
-   time for the work;
+   version over the kernel-test grids and the shapes the replays give it
+   (the bit-plane multiplier also on a ragged n, the jacobi1d length and
+   the dtypes' extreme values), flash attention within its tolerance (also
+   with logits large enough to move the running max inside a tile), with
+   CUDA-event times of the kernel, the plain version and the one PyTorch
+   call that computes the same function, beside the card's least time for
+   the work;
 4. pipeline — jacobi1d, aes, xor_filter, heat3d and llama2_infer at paper
    scale through the package's entry points: numeric run on the card (its
    outputs' digest must be the JAX package's; fp32 matmuls without TF32),
@@ -74,7 +77,7 @@ from repro_torch.core.isa import Location, Resource, VectorInstr  # noqa: E402
 from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, attention, ops, ref  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
 from repro_torch.models import model as M  # noqa: E402
@@ -115,10 +118,25 @@ ATTN_CASES = [(2, 64, 64, 32), (1, 128, 128, 64), (4, 32, 32, 16),
               (2, 32, 128, 32), (3, 13, 37, 64), (2, 37, 13, 16),
               (1, 24, 40, 128), (2, 300, 300, 128), (2, 520, 1040, 64)]
 # tolerance (atol = rtol) against the plain version: fp32 as
-# tests/test_kernels.py:79 holds the Pallas kernel; bf16: kernel and plain
-# version both round one fp32 result to bf16, so they differ by at most one
-# bf16 ulp, 2**-7 of the value
+# tests/test_kernels.py:79 holds the Pallas kernel; bf16: the tensor-core
+# kernel rounds the softmax weights to bf16 for the product with v (2**-9
+# relative a weight) and sums the normaliser from the same rounded weights,
+# so its output is a mean of v under weights within 2**-9 of the plain
+# version's fp32 ones; both then round the result to bf16 once (one ulp,
+# 2**-8 relative, apart).  The largest |diff| measured is in PERF.md.
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
+# q and k drawn x8 (bf16): logits of tens, so the running max moves inside
+# a 64-key tile and rescales by factors that underflow.  fp32 draws x4: at
+# x8 the fp32 plain version is itself ~3.5e-5 from the exact (float64)
+# answer, over its 3e-5 tolerance, so no fp32 kernel could be held there.
+ATTN_LARGE = (2, 300, 300, 64)
+LARGE_LOGITS = {torch.bfloat16: 8.0, torch.float32: 4.0}
+# the bit-plane multiplier's edges: a ragged n, the jacobi1d replay length
+# (neither a multiple of 32 elements nor of a warp's 1024), and every
+# ordered pair of each dtype's extremes
+MUL_RAGGED = [(3, 37), (1, 655358)]
+MUL_EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
+                np.int8: [-128, 127, -1, 0, 1, 3]}
 # the serving path: the default --arch of repro.launch.serve
 SERVE_ARCH = "tinyllama-1.1b"
 # full width and depth, bf16: two batches of four 1024-token prompts
@@ -210,21 +228,28 @@ def nvidia_smi(query: str) -> str:
 
 def sass_report(lib_path: str, nvcc: str) -> None:
     """Print, per kernel, what the compiler made of its loops: SASS
-    instruction count, LOP3/IMAD/SHF counts, and the length of each loop
-    body (instructions from a backward branch's target to the branch).
-    Informational: a missing ``cuobjdump`` is reported, not fatal."""
+    instruction count, LOP3/IMAD/SHF/HMMA counts (static: code the compiler
+    copies for a divergent warp counts again), the length of each loop
+    body (instructions from a backward branch's target to the branch), and
+    its registers, stack and static shared bytes (``cuobjdump
+    -res-usage``).  Informational: a missing ``cuobjdump`` is reported, not
+    fatal."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"  sass: {tool} not found")
         return
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
+    usage = dict(re.findall(
+        r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
+        subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
+                       text=True, check=True, timeout=120).stdout))
     for chunk in sass.split("Function : ")[1:]:
         name = label = chunk.split()[0]
         # a mangled name spells each identifier as <length><identifier>;
         # template args follow the kernel's: h uint8, j uint32, Li<k>E the
-        # MWS op code; f float, 13__nv_bfloat16, Li<dh>E the attention's
-        # head dim
+        # MWS op code; f float, Li<dh>E the attention's head dim (the
+        # tensor-core kernel has the head dim alone: bf16)
         for digits in re.finditer(r"(?=(\d+))", name):
             end = digits.start() + len(digits.group(1))
             ident = name[end:end + int(digits.group(1))]
@@ -232,11 +257,10 @@ def sass_report(lib_path: str, nvcc: str) -> None:
                 continue
             targs = re.match(r"I([hj])(?:Li(\d)E)?E",
                              name[end + len(ident):])
-            attn = re.match(r"I(f|13__nv_bfloat16)Li(\d+)EE",
-                            name[end + len(ident):])
+            attn = re.match(r"I(f)?Li(\d+)EE", name[end + len(ident):])
             label = ident
             if attn:
-                elem = {"f": "f32"}.get(attn.group(1), "bf16")
+                elem = "f32" if attn.group(1) else "bf16"
                 label = f"{ident}<{elem}, dh {attn.group(2)}>"
             elif targs:
                 elem = {"h": "u8", "j": "u32"}[targs.group(1)]
@@ -244,7 +268,7 @@ def sass_report(lib_path: str, nvcc: str) -> None:
                       if targs.group(2) is not None else "")
                 label = f"{ident}<{elem}{op}>"
             break
-        instrs = re.findall(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?"
+        instrs = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                             r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)
         ops = [op.split(".")[0] for _, op, _ in instrs]
         loops = []
@@ -257,7 +281,8 @@ def sass_report(lib_path: str, nvcc: str) -> None:
         real = [o for o in ops if o != "NOP"]
         print(f"  sass {label}: {len(real)} instructions, LOP3 "
               f"{ops.count('LOP3')}, IMAD {ops.count('IMAD')}, SHF "
-              f"{ops.count('SHF')}; loop bodies {sorted(loops)}")
+              f"{ops.count('SHF')}, HMMA {ops.count('HMMA')}; loop bodies "
+              f"{sorted(loops)}; {usage.get(name, 'resource usage not found')}")
 
 
 def time_ms(fn, reps: int, clock_hz: float, rounds: int = 5) -> float:
@@ -285,6 +310,17 @@ def time_ms(fn, reps: int, clock_hz: float, rounds: int = 5) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def plane_mul_ops(w: int) -> float:
+    """Integer operations per element of the bit-plane multiplier for W-bit
+    elements, 32 a lane: W(W+1)/2 full adders of three gates (the partial
+    product's AND, the XOR sum, the MAJ carry), and three butterfly
+    transposes of log2 W stages over W/2 word pairs, ~6 operations a
+    pair."""
+    adders = 3 * w * (w + 1) // 2
+    transposes = 3 * 6 * (w // 2) * int(math.log2(w))
+    return (adders + transposes) / 32
 
 
 def rand(rng, shape, dtype):
@@ -636,6 +672,9 @@ def main() -> int:
                 print("  ptxas:", line.strip())
         _build.library(stem)
         sass_report(info["path"], _build.find_nvcc())
+    print("  flash_attn_mma_kernel dynamic shared memory a block: "
+          + ", ".join(f"dh {dh} {attention.mma_smem_bytes(dh)} B"
+                      for dh in attention.HEAD_DIMS))
 
     # -- 3. kernels vs plain versions --------------------------------------
     phase("kernels")
@@ -657,16 +696,20 @@ def main() -> int:
             cases.append(("search_pages", np.int32, (rows, 32), wpr))
     cases += [("bitserial_add", np.int32, PAGE_SHAPE, None),
               ("bitserial_mul", np.int32, PAGE_SHAPE, None)]
+    cases += [("bitserial_mul", dt, shape, None)
+              for dt in (np.int32, np.int8) for shape in MUL_RAGGED]
+    cases += [("bitserial_mul", dt, None, "extremes") for dt in MUL_EXTREMES]
     cases += [("int8_matmul", np.int8, shape, None)
               for shape in MATMUL_SHAPES]
     cases += [("int8_matmul", np.int8, shape, "min")
               for shape in MATMUL_EXTREMES]
 
     def operands(name, dt, shape, arg):
-        """The operands of one call: (a, b) for the elementwise kernels, the
-        stack for MWS, (stack, query) with the query planted as record 0 of
-        row 3 for search, int8 (a[M, K], b[K, N]) for the GEMM (all -128
-        for ``arg == "min"``)."""
+        """The operands of one call: (a, b) for the elementwise kernels
+        (every ordered pair of the dtype's extremes as [1, n] for ``arg ==
+        "extremes"``), the stack for MWS, (stack, query) with the query
+        planted as record 0 of row 3 for search, int8 (a[M, K], b[K, N])
+        for the GEMM (all -128 for ``arg == "min"``)."""
         if name == "int8_matmul":
             m, k, n = shape
             if arg == "min":
@@ -682,6 +725,11 @@ def main() -> int:
             query = torch.arange(arg, dtype=torch.int32, device="cuda")
             stack[3, :arg] = query
             return stack, query
+        if arg == "extremes":
+            a, b = np.meshgrid(np.array(MUL_EXTREMES[dt], dt),
+                               np.array(MUL_EXTREMES[dt], dt))
+            return (torch.from_numpy(a.reshape(1, -1)).cuda(),
+                    torch.from_numpy(b.reshape(1, -1)).cuda())
         return rand(rng, shape, dt), rand(rng, shape, dt)
 
     kernel_fn = {"bitserial_add": lambda a, b, arg: ops.bitserial_add(a, b),
@@ -722,11 +770,13 @@ def main() -> int:
 
     # flash attention: fp32 and bf16, causal or not, against the plain
     # version at ATTN_TOL
-    n_attn = 0
+    n_attn, worst = 0, {dtype: 0.0 for dtype in ATTN_TOL}
     for (h, sq, sk, dh), causal, dtype in itertools.product(
-            ATTN_CASES, (True, False), ATTN_TOL):
-        q, k, v = (torch.from_numpy(rng.standard_normal((h, s_, dh)).astype(
-            np.float32)).to("cuda", dtype) for s_ in (sq, sk, sk))
+            ATTN_CASES + [ATTN_LARGE], (True, False), ATTN_TOL):
+        big = LARGE_LOGITS[dtype] if (h, sq, sk, dh) == ATTN_LARGE else 1.0
+        q, k, v = (torch.from_numpy(
+            (rng.standard_normal((h, s_, dh)) * x).astype(np.float32)).to(
+                "cuda", dtype) for s_, x in ((sq, big), (sk, big), (sk, 1.0)))
         got = ops.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -735,11 +785,14 @@ def main() -> int:
         if got.dtype != dtype or not torch.allclose(
                 got.float(), want.float(), atol=tol, rtol=tol):
             raise AssertionError(f"flash_attention {(h, sq, sk, dh)} causal="
-                                 f"{causal} {dtype}: max |kernel - plain| "
-                                 f"{err!r} over the tolerance {tol}")
+                                 f"{causal} {dtype} q, k x{big}: max |kernel "
+                                 f"- plain| {err!r} over the tolerance {tol}")
+        worst[dtype] = max(worst[dtype], err)
         n_attn += 1
     print(f"{n_attn} flash_attention cases within tolerance (fp32 "
-          f"{ATTN_TOL[torch.float32]}, bf16 {ATTN_TOL[torch.bfloat16]})")
+          f"{ATTN_TOL[torch.float32]}, bf16 {ATTN_TOL[torch.bfloat16]}; q, "
+          f"k x{LARGE_LOGITS} at {ATTN_LARGE}); largest |kernel - plain| "
+          f"fp32 {worst[torch.float32]!r}, bf16 {worst[torch.bfloat16]!r}")
 
     # Timing at the shapes the replays give each kernel (first listed per
     # kernel is its record).  Bound: the least time for the function each
@@ -749,16 +802,17 @@ def main() -> int:
     # The GEMM's operands fit in L2 and the timing loop reuses them; its
     # time with cold operands (cycling through sets of more than twice the
     # L2) is printed beside it.  For the PuD/IFP arithmetic the gate-level
-    # loop's own op count (3W+1, W(6W+5), 5 * bits per element) is printed
-    # beside it: it is the model's method, and the compiler already does
-    # less than it (dead carry rounds are known zero), so it bounds nothing.
+    # circuit's own op count per element (the adder's 3W+1, the bit-plane
+    # multiplier's full adders and transposes, plane_mul_ops, the IFP
+    # multiplier's 5 * bits) is printed beside it: it is the model's method,
+    # not the function's least work, so it bounds nothing.
     n = jacobi1d.SCALES["paper"]["n"] - 2
     aes_rows = WORKLOADS["aes"].SCALES["paper"]["n"] // 4096
     keys = xor_filter.SCALES["paper"]["n_keys"]
     slots = xor_filter.SCALES["paper"]["slots"]
     m = WORKLOADS["heat3d"].SCALES["paper"]["n"] - 2
     w = 32                                       # int32 lanes
-    gate_ops = {"bitserial_add": 3 * w + 1, "bitserial_mul": w * (6 * w + 5),
+    gate_ops = {"bitserial_add": 3 * w + 1, "bitserial_mul": plane_mul_ops(w),
                 "shift_add_mul": 5 * 8}
     # torch._int_mm: cuBLASLt's INT8 GEMM, K5's yardstick only (the port
     # never calls it)
@@ -836,7 +890,8 @@ def main() -> int:
                          else int32_ops_per_s) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        gate = (f"; gate-level ops at INT32 peak "
+        gate = (f"; gate-level ops {gate_ops[name]:g} an element, at INT32 "
+                f"peak "
                 f"{gate_ops[name] * xs[0].numel() / int32_ops_per_s * 1e3:.6f}"
                 if name in gate_ops else "")
         if name == "int8_matmul":

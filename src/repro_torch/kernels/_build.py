@@ -29,8 +29,8 @@ _P = ctypes.c_void_p
 _N = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
-# source stem -> {C entry point -> argtypes}; every entry point returns a
-# cudaError_t as int
+# source stem -> {C entry point -> argtypes}; every entry point returns an
+# int: a cudaError_t, or for *_smem_bytes a byte count
 SIGNATURES = {
     "ndp": {
         "ndp_bitserial_add_i8": (_P, _P, _P, _N, _P),
@@ -47,6 +47,7 @@ SIGNATURES = {
     "attention": {
         "ndp_flash_attn_f32": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
         "ndp_flash_attn_bf16": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
+        "ndp_flash_attn_bf16_smem_bytes": (_I,),
     },
 }
 _SOURCE_OF = {fn: stem for stem, fns in SIGNATURES.items() for fn in fns}

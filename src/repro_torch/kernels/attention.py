@@ -3,16 +3,28 @@
 Replaces the Pallas kernel ``repro/kernels/attention.py`` ``_attn_kernel``
 (grid (heads, q-blocks); one q tile in VMEM, k/v tiles streamed with a
 running (max, normaliser, accumulator), no ``[Sq, Sk]`` score matrix) with
-the CUDA kernel ``flash_attn_kernel`` of ``csrc/attention.cu``: a block of
-256 threads owns one head and a tile of q rows, a row split over dh / 16
-lanes, K/V tiles streamed through shared memory as fp32, eight keys scored
-per rescale.  fp32 arithmetic throughout, output in q's type; the causal
-mask is ``q_pos >= k_pos`` aligned top-left, as the TPU kernel's; any Sq
-and Sk pass unpadded.  Bound on an H100 at the serving shape: the bytes of
-q, k, v and out; this first form runs on the CUDA cores and is held by
-their fp32 rate (PERF.md).
+two CUDA kernels of ``csrc/attention.cu``, chosen by the element type:
 
-``LAUNCHES`` counts kernel launches.
+* bf16: ``flash_attn_mma_kernel``, FlashAttention-2 on the tensor cores.
+  A block of 4 warps owns one head and 64 q rows; q, K and V pass through
+  shared memory as bf16 (``cp.async``, K/V tiles of 64 keys
+  double-buffered); both products are ``mma.sync`` m16n8k16 with fp32
+  accumulators, the scale applied after q·kᵀ, the online softmax on the
+  accumulator fragments, and P rounded to bf16 in registers for P·v, with
+  the normaliser summed from the same rounded weights.  Bound on an H100
+  at the serving shape: the bytes of q, k, v and out (PERF.md).
+* fp32: ``flash_attn_kernel`` on the CUDA cores, fp32 throughout (TF32
+  would lose the fp32 tolerance): a block of 256 threads owns one head and
+  a tile of q rows, a row split over dh / 16 lanes, K/V tiles streamed
+  through shared memory, eight keys scored per rescale; held by the fp32
+  rate.
+
+The output is in q's type; the causal mask is ``q_pos >= k_pos`` aligned
+top-left, as the TPU kernel's; any Sq and Sk pass unpadded.  q, k, v and
+the output must be 16-byte aligned (``cp.async`` and ``ldmatrix`` read
+16-byte chunks); the wrapper checks it and the return of every call.
+
+``LAUNCHES`` counts launches of either kernel.
 """
 from __future__ import annotations
 
@@ -47,9 +59,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq < 1 or sk < 1:
         raise ValueError(f"flash_attention: empty sequence, Sq {sq}, Sk {sk}")
     out = torch.empty_like(q)
+    misaligned = [name for name, t in zip("q k v out".split(), (q, k, v, out))
+                  if t.data_ptr() % 16]
+    if misaligned:
+        raise ValueError(f"flash_attention: {misaligned} not 16-byte aligned")
     _build.call(f"ndp_flash_attn_{_SUFFIX[q.dtype]}", q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), heads, sq, sk, dh,
                 int(causal), scale * math.log2(math.e),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES += 1
     return out
+
+
+def mma_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory a block of the bf16 kernel takes at head dim
+    ``dh`` (q, and double-buffered K and V tiles)."""
+    return _build.library("attention").ndp_flash_attn_bf16_smem_bytes(dh)

@@ -2,22 +2,33 @@
 
 Replaces the Pallas kernels ``repro/kernels/bitserial.py`` ``_add_kernel``
 and ``_mul_kernel`` with the CUDA kernels of ``csrc/ndp.cu``.  The
-ripple-carry adder and shift-add multiplier use ONLY the PuD primitive set
-{AND, OR, XOR, NOT, shift} — the gate-level circuits SIMDRAM synthesizes —
-so each kernel is a functional model of the in-DRAM computation.
+ripple-carry adder and the multiplier use ONLY the PuD primitive set
+{AND, OR, XOR, NOT, MAJ, shift} — the gate-level circuits SIMDRAM
+synthesizes — so each kernel is a functional model of the in-DRAM
+computation.
 
-Design: one flat grid-stride pass over the ``n`` contiguous elements, one
-element per thread per step, neighbouring threads on neighbouring
-addresses; every round runs in registers on the unsigned view of the
-element.  Bounds on an H100: the adder's function (a + b) moves
-3 * itemsize bytes per element and does one op, so HBM bounds it; its 32
-rounds compile to ~100 SASS instructions per element, which fit under
-that bound, and it runs within about 2x of it.  The multiplier is bound
-by instruction issue instead: the compiler drops the carry rounds it
-knows are zero and fuses pairs of rounds into LOP3s, leaving ~2.7k SASS
-instructions per int32 element, far above the memory pass (PERF.md).  A
-layout closer to SIMDRAM's vertical bit-planes (32 elements per logic op)
-is the way to a faster multiplier.
+The adder (``bitserial_add_kernel``): one flat grid-stride pass over the
+``n`` contiguous elements, one element per thread per step, neighbouring
+threads on neighbouring addresses, its 32 XOR/AND-shift rounds in
+registers on the unsigned view.  Its function (a + b) moves 3 * itemsize
+bytes per element and does one op, so HBM bounds it; its rounds compile
+to ~100 SASS instructions per element, under that bound, and it runs
+within about 2x of it.
+
+The multiplier (``bitserial_mul_planes_kernel``) lays the operands out as
+SIMDRAM does, vertically: a lane owns 32 elements and turns each operand
+into W = 8 * itemsize bit-plane words (word j holds bit j of the 32
+elements) with a register butterfly transpose, after coalesced 16-byte
+loads staged through swizzled shared memory.  Partial product i is plane
+b_i ANDed onto a's planes shifted by i, added into the accumulator planes
+i..W-1 by a ripple of full adders (sum XOR, carry MAJ; one LOP3 each), the
+last carry dropped — W(W+1)/2 full adders per 32 elements.  The
+accumulator is transposed back and stored; the ragged end (elements past
+n read as 0 and are never stored) and unaligned operands go an element at
+a time.  Its function moves the same bytes as the adder's; the circuit and
+transposes issue ~95 integer operations an element, so integer issue
+bounds it, at ~4x the bytes bound where the element-serial form ran at 33x
+(PERF.md).
 
 ``ADD_LAUNCHES`` / ``MUL_LAUNCHES`` count kernel launches, so a run can
 show that it went through the kernels.
@@ -53,7 +64,7 @@ def bitserial_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def bitserial_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise a*b via bit-serial shift-add partial products (CUDA)."""
+    """Elementwise a*b via the bit-plane shift-add circuit (CUDA)."""
     global MUL_LAUNCHES
     out = _launch("mul", a, b)
     MUL_LAUNCHES += 1

@@ -1,8 +1,10 @@
 // Functional models of the SSD's NDP resources, written for Hopper (sm_90a).
 //
-//   bitserial add / mul  — PuD (SIMDRAM/MIMDRAM) bit-serial arithmetic;
-//                          replaces repro/kernels/bitserial.py _add_kernel
-//                          and _mul_kernel.
+//   bitserial add        — PuD (SIMDRAM/MIMDRAM) bit-serial add;
+//                          replaces repro/kernels/bitserial.py _add_kernel.
+//   bitserial mul        — PuD multiply on SIMDRAM's vertical bit-planes;
+//                          replaces repro/kernels/bitserial.py _mul_kernel.
+//                          See its own note below.
 //   shift_add_mul        — IFP (Ares-Flash) latch shift-and-add multiply;
 //                          replaces repro/kernels/shift_add.py
 //                          _shift_add_kernel.
@@ -18,14 +20,16 @@
 //                          replaces repro/kernels/int8_matmul.py
 //                          _matmul_kernel.  See its own note below.
 //
-// Each elementwise kernel (all but int8_matmul) keeps the gate-level loop
-// of the TPU kernel, because that
-// loop *is* the model of the in-memory circuit: the adder is built only
-// from XOR (sum) and AND-then-shift (carry) row operations, the
-// multipliers from predicated shifted partial products.  It is not carried
-// over block by block: no VMEM tiles and no (8, 128) padding, but one flat
-// grid-stride pass over n contiguous elements, neighbouring threads on
-// neighbouring addresses, the ragged end masked by the index test.
+// Each elementwise kernel (all but int8_matmul) keeps the gate-level
+// circuit of the TPU kernel, because that circuit *is* the model of the
+// in-memory computation: the adder is built only from XOR (sum) and
+// AND-then-shift (carry) row operations, the IFP multiplier from
+// predicated shifted partial products, the PuD multiplier from full
+// adders (XOR sum, MAJ carry) over bit-planes.  It is not carried over
+// block by block: no VMEM tiles and no (8, 128) padding, but a grid-stride
+// pass over n contiguous elements (one element a thread, neighbouring
+// threads on neighbouring addresses; the multiplier, 32 elements a thread),
+// the ragged end masked by the index test.
 //
 // All arithmetic runs on unsigned views (uint8_t / uint32_t):
 //   * a left shift of a negative signed value is undefined before C++20;
@@ -53,12 +57,12 @@ struct Width {
   static constexpr int value = 8 * static_cast<int>(sizeof(U));
 };
 
-// W-round (or `rounds`) ripple: s = x ^ y (XOR row-op), c = (x & y) << 1
-// (MAJ row-op + shift); after W rounds the carry has left the word.
-template <typename U, int kRounds>
+// W-round ripple: s = x ^ y (XOR row-op), c = (x & y) << 1 (MAJ row-op +
+// shift); after W rounds the carry has left the word.
+template <typename U>
 __device__ __forceinline__ U ripple_add(U x, U y) {
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
+  for (int r = 0; r < Width<U>::value; ++r) {
     const U s = static_cast<U>(x ^ y);
     const U c = static_cast<U>(static_cast<U>(x & y) << 1);
     x = s;
@@ -71,35 +75,249 @@ template <typename U>
 __global__ void bitserial_add_kernel(const U* __restrict__ a,
                                      const U* __restrict__ b,
                                      U* __restrict__ out, long long n) {
-  constexpr int W = Width<U>::value;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
-    out[i] = ripple_add<U, W>(a[i], b[i]);
+    out[i] = ripple_add(a[i], b[i]);
   }
 }
 
-// W predicated partial products (b_i ? a << i : 0), each folded into the
-// accumulator by the same XOR/AND ripple over 2W rounds.
+// PuD multiply on SIMDRAM's vertical bit-planes: a * b wrapped to W bits.
+//
+// SIMDRAM lays an operand out vertically: row j of a subarray holds bit j
+// of every element, so one row operation (AND, OR, XOR, NOT, MAJ) acts on
+// that bit of all the elements at once.  Here a 32-bit register word is
+// such a row over 32 elements: a lane owns 32 elements and turns each
+// operand into W plane words (word j holds bit j of its 32 elements).  The
+// product is then the shift-add circuit on planes: partial product i is
+// plane b_i ANDed onto the planes of a shifted up by i (a register
+// renaming, so free), and it is added into the accumulator planes i..W-1
+// by a ripple of full adders, sum = x ^ y ^ c (XOR) and carry =
+// MAJ(x, y, c), each one LOP3.  The carry out of plane W-1 is dropped: the
+// wrap of the TPU kernel's a << i and its 2W-round add.  W(W+1)/2 full
+// adders serve 32 elements (528 for int32, 36 for int8), where the
+// element-serial form runs W partial products of 2W ripple rounds for
+// every element.
+//
+// Layout.  A warp owns a tile of 32 * 32 elements.  It reads the tile with
+// 16-byte loads, neighbouring lanes on neighbouring chunks, into its own
+// slice of shared memory; a lane then reads back its 32 contiguous
+// elements as 16-byte loads.  A lane's row is 32 * sizeof(U) bytes, so
+// without care the lanes of one load would all hit the same banks; the
+// chunk index is XOR-swizzled with the row (PlaneTile::offset), which
+// makes both the stores and the loads conflict-free.  In registers the
+// words become planes by a butterfly transpose (transpose_bits: 5 stages
+// of 16 word pairs for int32, 3 stages of 4 pairs for int8's 8 words of
+// four elements each); the stages of 16 and 8 bits are byte permutes.  The
+// accumulator goes back the same way.  A tile that runs past n, or
+// operands that are not 16-byte aligned, are read and written an element at
+// a time through the same swizzled slice, elements past n reading as 0
+// and never stored.
+//
+// Bound on an H100 at the jacobi1d shape (655358 int32): the function's
+// bytes, 12 per element, ~2.3 us.  The circuit and transposes issue about
+// 95 integer operations an element (chip_smoke.py's gate count), ~3.7 us
+// at the card's INT32 rate: this kernel is bound by integer issue, and
+// with 640 warp tiles on 528 SM sub-partitions some run two tiles in turn;
+// it runs at ~4x the bytes bound, where the element-serial form ran at 33x
+// (PERF.md).  A cross-warp transpose with __ballot_sync was not taken: it
+// spends one warp-wide ballot per (plane, 32 elements), 32 lane-operations
+// an element per operand, twice the butterfly's ~15.
+constexpr int kPlaneThreads = 128;
+constexpr int kPlaneWarps = kPlaneThreads / 32;
+constexpr int kLaneElems = 32;                 // one plane word's elements
+constexpr int kTileElems = 32 * kLaneElems;    // a warp's tile
+
 template <typename U>
-__global__ void bitserial_mul_kernel(const U* __restrict__ a,
-                                     const U* __restrict__ b,
-                                     U* __restrict__ out, long long n) {
-  constexpr int W = Width<U>::value;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const U x = a[i];
-    const U y = b[i];
-    U acc = 0;
-#pragma unroll 1
-    for (int k = 0; k < W; ++k) {
-      const U pp = ((y >> k) & 1u) ? static_cast<U>(x << k) : U(0);
-      acc = ripple_add<U, 2 * W>(acc, pp);
+struct PlaneTile {
+  static constexpr int kWords = kLaneElems * sizeof(U) / 4;  // a lane's
+  static constexpr int kChunks = kWords / 4;     // 16-byte chunks a lane
+  static constexpr int kBytes = kTileElems * sizeof(U);
+  // byte offset of chunk q of lane row r in the warp's slice: rows of
+  // kChunks chunks, the chunk XOR-swizzled so that the 8 lanes of one
+  // 16-byte access phase fall in 8 distinct 16-byte bank groups, both when
+  // a lane reads its row and when lanes store consecutive chunks
+  static __device__ __forceinline__ int offset(int r, int q) {
+    constexpr int kRowsPerPattern = 8 / kChunks;   // 1 (int32), 4 (int8)
+    return (r * kChunks + (q ^ ((r / kRowsPerPattern) % kChunks))) * 16;
+  }
+  // the same for element e of the tile (the ragged path)
+  static __device__ __forceinline__ int element_offset(int e) {
+    const int byte = (e % kLaneElems) * static_cast<int>(sizeof(U));
+    return offset(e / kLaneElems, byte / 16) + byte % 16;
+  }
+};
+
+// mask of the low s bits of every 2s-bit group
+__device__ __forceinline__ constexpr uint32_t butterfly_mask(int s) {
+  return s == 16 ? 0x0000ffffu : s == 8 ? 0x00ff00ffu
+       : s == 4 ? 0x0f0f0f0fu : s == 2 ? 0x33333333u : 0x55555555u;
+}
+
+// Swap bit k of the word index with bit k of the bit position, for every
+// k < log2 N.  For N = 32 it is the 32 x 32 bit-matrix transpose (bit e of
+// word j becomes bit j of word e); for N = 8 words of four bytes it makes
+// word j hold bit j of all 32 bytes, in a fixed order of the bytes that
+// the same call undoes.  It is its own inverse.
+template <int N>
+__device__ __forceinline__ void transpose_bits(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int s = N / 2; s >= 1; s /= 2) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k & s) continue;
+      const uint32_t lo = x[k];
+      const uint32_t hi = x[k + s];
+      if (s == 16) {
+        x[k] = __byte_perm(lo, hi, 0x5410);
+        x[k + s] = __byte_perm(lo, hi, 0x7632);
+      } else if (s == 8) {
+        x[k] = __byte_perm(lo, hi, 0x6240);
+        x[k + s] = __byte_perm(lo, hi, 0x7351);
+      } else {
+        const uint32_t t = ((lo >> s) ^ hi) & butterfly_mask(s);
+        x[k] = lo ^ (t << s);
+        x[k + s] = hi ^ t;
+      }
     }
-    out[i] = acc;
+  }
+}
+
+// One LOP3: the 3-input logic function whose truth table is kLut (bit
+// 4a + 2b + c of kLut is f(a, b, c) for single bits a, b, c).
+template <unsigned int kLut>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(c), "n"(kLut));
+  return d;
+}
+constexpr unsigned int kXor3 = 0x96;   // a ^ b ^ c
+constexpr unsigned int kMaj = 0xe8;    // MAJ(a, b, c)
+
+// acc = a * b on W bit-planes: partial product 0 is the first accumulator,
+// each later one is added by a ripple of full adders from its own plane up
+// to plane W - 1; the last carry is dropped.  The sum and the carry are one
+// LOP3 each (written out: the compiler, left to itself, splits them).
+template <int W>
+__device__ __forceinline__ void multiply_planes(const uint32_t (&a)[W],
+                                                const uint32_t (&b)[W],
+                                                uint32_t (&acc)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) acc[j] = a[j] & b[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int j = i; j < W; ++j) {
+      const uint32_t x = acc[j];
+      const uint32_t y = a[j - i] & b[i];
+      acc[j] = lop3<kXor3>(x, y, carry);         // the sum
+      carry = lop3<kMaj>(x, y, carry);           // the carry
+    }
+  }
+}
+
+// The lane's 32 elements of the warp's tile at src, as kWords words, via
+// the warp's shared slice.  `whole`: all 32 * 32 elements lie before n and
+// the pointer is 16-byte aligned; else only the `left` elements are read.
+template <typename U>
+__device__ __forceinline__ void load_lane(
+    const U* __restrict__ src, long long left, bool whole,
+    unsigned char* slice, int lane,
+    uint32_t (&words)[PlaneTile<U>::kWords]) {
+  using T = PlaneTile<U>;
+  if (whole) {
+#pragma unroll
+    for (int r = 0; r < T::kChunks; ++r) {
+      const int c = lane + 32 * r;
+      *reinterpret_cast<uint4*>(slice + T::offset(c / T::kChunks,
+                                                  c % T::kChunks)) =
+          reinterpret_cast<const uint4*>(src)[c];
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < kLaneElems; ++k) {
+      const int e = lane + 32 * k;
+      *reinterpret_cast<U*>(slice + T::element_offset(e)) =
+          e < left ? src[e] : U(0);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < T::kChunks; ++q) {
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(slice + T::offset(lane, q));
+    words[4 * q + 0] = v.x;
+    words[4 * q + 1] = v.y;
+    words[4 * q + 2] = v.z;
+    words[4 * q + 3] = v.w;
+  }
+  __syncwarp();
+}
+
+// The inverse of load_lane: the lane's words to its 32 elements at dst.
+template <typename U>
+__device__ __forceinline__ void store_lane(
+    U* __restrict__ dst, long long left, bool whole, unsigned char* slice,
+    int lane, const uint32_t (&words)[PlaneTile<U>::kWords]) {
+  using T = PlaneTile<U>;
+#pragma unroll
+  for (int q = 0; q < T::kChunks; ++q) {
+    *reinterpret_cast<uint4*>(slice + T::offset(lane, q)) =
+        make_uint4(words[4 * q + 0], words[4 * q + 1], words[4 * q + 2],
+                   words[4 * q + 3]);
+  }
+  __syncwarp();
+  if (whole) {
+#pragma unroll
+    for (int r = 0; r < T::kChunks; ++r) {
+      const int c = lane + 32 * r;
+      reinterpret_cast<uint4*>(dst)[c] = *reinterpret_cast<const uint4*>(
+          slice + T::offset(c / T::kChunks, c % T::kChunks));
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < kLaneElems; ++k) {
+      const int e = lane + 32 * k;
+      if (e < left) {
+        dst[e] = *reinterpret_cast<const U*>(slice + T::element_offset(e));
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <typename U>
+__global__ void __launch_bounds__(kPlaneThreads)
+    bitserial_mul_planes_kernel(const U* __restrict__ a,
+                                const U* __restrict__ b,
+                                U* __restrict__ out, long long n,
+                                int aligned) {
+  using T = PlaneTile<U>;
+  constexpr int W = Width<U>::value;
+  static_assert(T::kWords == W, "a lane holds one word per plane");
+  __shared__ __align__(16) unsigned char stage[kPlaneWarps][T::kBytes];
+  const int lane = threadIdx.x % 32;
+  unsigned char* slice = stage[threadIdx.x / 32];
+  const long long warps = static_cast<long long>(gridDim.x) * kPlaneWarps;
+  for (long long tile = static_cast<long long>(blockIdx.x) * kPlaneWarps +
+                        threadIdx.x / 32;
+       tile * kTileElems < n; tile += warps) {
+    const long long base = tile * kTileElems;
+    const long long left = n - base;
+    const bool whole = aligned && left >= kTileElems;
+    uint32_t pa[W], pb[W], acc[W];
+    load_lane(a + base, left, whole, slice, lane, pa);
+    load_lane(b + base, left, whole, slice, lane, pb);
+    transpose_bits(pa);
+    transpose_bits(pb);
+    multiply_planes(pa, pb, acc);
+    transpose_bits(acc);
+    store_lane(out + base, left, whole, slice, lane, acc);
   }
 }
 
@@ -292,10 +510,17 @@ template <typename U>
 cudaError_t launch_mul(const void* a, const void* b, void* out, long long n,
                        void* stream) {
   if (n <= 0) return cudaSuccess;
-  bitserial_mul_kernel<U><<<grid_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  const long long tiles = (n + kTileElems - 1) / kTileElems;
+  long long blocks = (tiles + kPlaneWarps - 1) / kPlaneWarps;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int aligned = ((reinterpret_cast<uintptr_t>(a) |
+                        reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  bitserial_mul_planes_kernel<U><<<static_cast<unsigned int>(blocks),
+                                   kPlaneThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const U*>(a), static_cast<const U*>(b),
-      static_cast<U*>(out), n);
+      static_cast<U*>(out), n, aligned);
   return cudaGetLastError();
 }
 

@@ -17,7 +17,19 @@ do, so all of these are exact.
 Attention has only its plain version, :func:`flash_attention_plain`, which
 is also its specification: the JAX package's oracle ``ref_attention``
 aligns the causal mask bottom-right where its kernel aligns it top-left
-(ROADMAP R1), and the port follows the kernel.
+(ROADMAP R1), and the port follows the kernel.  The fp32 kernel is held to
+it at 3e-5 (``tests/test_kernels.py``'s tolerance).  The bf16 kernel is held
+at 1e-2 (atol = rtol): it rounds the softmax weights to bf16 for the
+product with v (2**-9 relative a weight) and sums the normaliser from the
+same rounded weights, so its output is a mean of v under weights within
+2**-9 of the plain version's fp32 ones, and both round the result to bf16
+once (one bf16 ulp, 2**-8 relative, apart at most from that rounding).
+The largest |kernel - plain| measured on the card is in PERF.md.
+
+Two more functions rehearse the redesigned kernels' algorithms on the CPU
+(no dispatch path uses them): :func:`bitserial_mul_planes_plain`, the PuD
+multiplier on bit-planes, and :func:`flash_attention_tiled_plain`, the bf16
+attention kernel's tiled numerics.
 """
 from __future__ import annotations
 
@@ -49,6 +61,58 @@ def bitserial_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         pp = torch.where(((b >> i) & 1) == 1, a << i, 0)
         acc = _ripple_add(acc, pp, 2 * bits)
     return acc
+
+
+# (shift, mask) of each butterfly stage: the mask keeps the low half of
+# every 2 * shift-bit group
+_BUTTERFLY = {16: 0x0000FFFF, 8: 0x00FF00FF, 4: 0x0F0F0F0F, 2: 0x33333333,
+              1: 0x55555555}
+
+
+def _transpose_bits(words: list) -> list:
+    """The CUDA kernel's ``transpose_bits`` over N int32 word tensors: swap
+    bit k of the word index with bit k of the bit position for every
+    k < log2 N (for N = 32 the bit-matrix transpose).  Its own inverse.
+    Arithmetic shifts are exact here: the mask drops the sign bits."""
+    x = list(words)
+    s = len(x) // 2
+    while s:
+        for k in range(len(x)):
+            if k & s:
+                continue
+            t = ((x[k] >> s) ^ x[k + s]) & _BUTTERFLY[s]
+            x[k], x[k + s] = x[k] ^ (t << s), x[k + s] ^ t
+        s //= 2
+    return x
+
+
+def bitserial_mul_planes_plain(a: torch.Tensor,
+                               b: torch.Tensor) -> torch.Tensor:
+    """The bit-plane PuD multiplier of ``csrc/ndp.cu`` in torch integer ops:
+    each group of 32 elements (zero-padded at the end) becomes W = 8 *
+    itemsize plane words by the butterfly transpose of its 32 * itemsize /
+    4 little-endian words; partial product i (a's planes shifted by i,
+    ANDed with plane b_i) is added into the accumulator planes i..W-1 by a
+    ripple of full adders (sum XOR, carry MAJ), the last carry dropped;
+    the accumulator is transposed back."""
+    n, bits = a.numel(), a.element_size() * 8
+    pad = -n % 32
+
+    def planes(x):
+        x = torch.nn.functional.pad(x.reshape(-1), (0, pad))
+        words = x.reshape(-1, 32).view(torch.int32)    # [groups, W]
+        return _transpose_bits(list(words.unbind(1)))
+
+    pa, pb = planes(a), planes(b)
+    acc = [p & pb[0] for p in pa]
+    for i in range(1, bits):
+        carry = torch.zeros_like(acc[0])
+        for j in range(i, bits):
+            x, y = acc[j], pa[j - i] & pb[i]
+            acc[j] = x ^ y ^ carry
+            carry = (x & y) | (carry & (x ^ y))
+    words = torch.stack(_transpose_bits(acc), dim=1)
+    return words.view(a.dtype).reshape(-1)[:n].reshape(a.shape)
 
 
 def shift_add_mul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -171,3 +235,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~keep, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("hqk,hkd->hqd", probs, v.float()).to(q.dtype)
+
+
+# keys a K/V tile of the bf16 attention kernel
+ATTN_TILE_KEYS = 64
+
+
+def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool = True,
+                                scale: float | None = None) -> torch.Tensor:
+    """The bf16 attention kernel's numerics in torch: keys in tiles of 64,
+    the logits in fp32 and scaled by ``scale * log2(e)`` after the product,
+    masked keys at -inf, an online softmax in base 2, the weights rounded
+    to bf16 for the product with v and the normaliser summed from the same
+    rounded weights; the output cast to q's type."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    heads, sq, dh = q.shape
+    sk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((heads, sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((heads, sq, 1), device=q.device)
+    acc = torch.zeros((heads, sq, dh), device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, sk, ATTN_TILE_KEYS):
+        k1 = min(sk, k0 + ATTN_TILE_KEYS)
+        s = torch.einsum("hqd,hkd->hqk", qf, kf[:, k0:k1]) * (
+            scale * math.log2(math.e))
+        if causal:
+            keys = torch.arange(k0, k1, device=q.device)[None, :]
+            s = s.masked_fill(keys > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("hqk,hkd->hqd", p, vf[:, k0:k1])
+        m = m_new
+    return (acc / l).to(q.dtype)

@@ -10,10 +10,12 @@ M-RoPE come with their slice (ROADMAP.md Queue 1).
 Attention over a whole sequence (``_sdpa``) goes through the hand-written
 flash-attention kernel (:func:`repro_torch.kernels.ops.flash_attention`,
 the JAX package's K6), which the JAX package's docstring names as the
-replacement of its chunked einsum path on real hardware.  The kernel keeps
-the probabilities in fp32 for the product with v, where the JAX einsum path
-casts them to the working type first: the two agree to rounding in fp32
-and within about one bf16 ulp in bf16.
+replacement of its chunked einsum path on real hardware.  In fp32 the two
+agree to rounding.  In bf16 the kernel rounds the probabilities to bf16 for
+the product with v, as the JAX einsum path casts them to the working type,
+but normalises by the sum of the rounded weights where that path
+normalises first: the two agree within the bf16 tolerance of
+``kernels/ref.py``.
 """
 from __future__ import annotations
 

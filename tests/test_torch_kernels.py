@@ -24,6 +24,11 @@ MWS_OPS = ["and", "or", "xor", "nand", "nor"]
 MWS_GRID = [(n, op, d) for d in INT_DTYPES for op in MWS_OPS
             for n in (2, 3, 7, 48)]
 SEARCH_GRID = [(wpr, rows) for rows in (8, 24, 13) for wpr in (1, 2, 4)]
+# the multiplier's edges: a ragged n (not a multiple of 32 elements, nor of
+# a warp's 1024), and the extremes of each dtype as operand pairs
+MUL_RAGGED = [((3, 37), np.int32), ((3, 37), np.int8), ((5, 413), np.int8)]
+MUL_EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
+                np.int8: [-128, 127, -1, 0, 1, 3]}
 # (M, K, N): the int8_matmul grid of tests/test_kernels.py, then shapes that
 # divide nothing
 MATMUL_GRID = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160)]
@@ -43,6 +48,14 @@ def _pair(shape, dtype, seed=42):
 
 def _t(x):
     return torch.from_numpy(np.array(x))
+
+
+def _extremes(dtype):
+    """Every ordered pair of ``MUL_EXTREMES[dtype]`` as ``[1, n]``
+    operands."""
+    a, b = np.meshgrid(np.array(MUL_EXTREMES[dtype], dtype),
+                       np.array(MUL_EXTREMES[dtype], dtype))
+    return a.reshape(1, -1), b.reshape(1, -1)
 
 
 def _stack(n_ops, dtype, seed=42):
@@ -93,6 +106,26 @@ def test_bitserial_mul_plain_equals_repro_oracle(shape, dtype):
         ref.bitserial_mul_plain(_t(a), _t(b)).numpy(), want)
     np.testing.assert_array_equal(
         ref.ref_bitserial_mul(_t(a), _t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("case", MUL_GRID[:2] + MUL_GRID[3:5] + MUL_RAGGED
+                         + [("extremes", np.int32), ("extremes", np.int8)],
+                         ids=str)
+def test_bitserial_mul_planes_plain_equals_repro_oracle_and_pallas(case):
+    """The bit-plane multiplier's algorithm (transpose, MAJ/XOR full
+    adders, transpose back) against the JAX package's oracle and its
+    interpret-mode Pallas kernel."""
+    jnp, repro_ops, repro_ref = _reference()
+    shape, dtype = case
+    a, b = _extremes(dtype) if shape == "extremes" else _pair(shape, dtype)
+    want = np.asarray(repro_ref.ref_bitserial_mul(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+    np.testing.assert_array_equal(
+        np.asarray(repro_ops.bitserial_mul(jnp.asarray(a), jnp.asarray(b))),
+        want)
+    got = ref.bitserial_mul_planes_plain(_t(a), _t(b))
+    assert got.dtype == _t(a).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape,bits", SHIFT_GRID)
@@ -333,20 +366,35 @@ def test_cuda_kernels_equal_their_plain_versions():
     if _build.find_nvcc() is None:
         pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
     ops.reset_launch_counts()
+    mul_cases = (MUL_GRID + MUL_RAGGED + [((1, 655358), np.int32)]
+                 + [("extremes", d) for d in MUL_EXTREMES])
     cases = ([("bitserial_add", s, d, 8) for s, d in ADD_GRID]
-             + [("bitserial_mul", s, d, 8) for s, d in MUL_GRID]
+             + [("bitserial_mul", s, d, 8) for s, d in mul_cases]
              + [("shift_add_mul", s, np.int32, bits)
                 for s, bits in SHIFT_GRID])
     plain = {"bitserial_add": lambda a, b, bits: ref.bitserial_add_plain(a, b),
              "bitserial_mul": lambda a, b, bits: ref.bitserial_mul_plain(a, b),
              "shift_add_mul": ref.shift_add_mul_plain}
     for kernel, shape, dtype, bits in cases:
-        a, b = (_t(x).cuda() for x in _pair(shape, dtype))
+        a, b = (_t(x).cuda() for x in (_extremes(dtype) if shape == "extremes"
+                                        else _pair(shape, dtype)))
         got = (ops.shift_add_mul(a, b, bits=bits) if kernel == "shift_add_mul"
                else getattr(ops, kernel)(a, b))
         torch.cuda.synchronize()
         assert torch.equal(got, plain[kernel](a, b, bits)), (kernel, shape,
                                                              dtype, bits)
+    # operands one element past an allocation's start (not 16-byte
+    # aligned): the multiplier's element-at-a-time path on whole tiles
+    for dtype in INT_DTYPES:
+        a, b = (_t(x).cuda() for x in _pair((1, 2100), dtype, seed=3))
+        a_off, b_off = (torch.empty(2101, dtype=t.dtype, device="cuda")[1:]
+                        .reshape(1, -1) for t in (a, b))
+        a_off.copy_(a)
+        b_off.copy_(b)
+        assert a_off.data_ptr() % 16 and b_off.data_ptr() % 16
+        got = ops.bitserial_mul(a_off, b_off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.bitserial_mul_plain(a, b)), dtype
     for n_ops, op, dtype in MWS_GRID:
         stack = _t(_stack(n_ops, dtype)).cuda()
         got = ops.mws_bitwise(stack, op)
@@ -359,7 +407,8 @@ def test_cuda_kernels_equal_their_plain_versions():
         assert torch.equal(got, ref.search_plain(stack, query)), (wpr, rows)
         assert bool(got[3, 0])
     assert ops.launch_counts() == {"bitserial_add": len(ADD_GRID),
-                                   "bitserial_mul": len(MUL_GRID),
+                                   "bitserial_mul": len(mul_cases)
+                                   + len(INT_DTYPES),
                                    "shift_add_mul": len(SHIFT_GRID),
                                    "mws_bitwise": len(MWS_GRID),
                                    "search_pages": len(SEARCH_GRID),
@@ -401,12 +450,19 @@ ATTN_GRID = [(2, 64, 32), (1, 128, 64), (4, 32, 16)]
 # dh 128 (qwen3-4b); (h, sq, sk, dh)
 ATTN_CROSS = [(2, 32, 128, 32), (3, 13, 37, 64), (2, 37, 13, 16),
               (1, 24, 40, 128)]
+# q and k drawn x8 (bf16): logits of tens, so a row's running max changes
+# inside a 64-key tile and the weights span many binades.  fp32 draws x4:
+# at x8 the fp32 plain version is itself ~3.5e-5 from the float64 answer,
+# over the fp32 tolerance of 3e-5, so no fp32 kernel could be held there
+# (test_flash_attention_plain_fp32_conditioning pins both).
+ATTN_LARGE = (2, 128, 128, 64)
+LARGE_LOGITS = {torch.bfloat16: 8.0, torch.float32: 4.0}
 
 
-def _qkv(h, sq, sk, dh, seed=0):
+def _qkv(h, sq, sk, dh, seed=0, qk_scale=1.0):
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(h, sq, dh)).astype(np.float32),
-            rng.normal(size=(h, sk, dh)).astype(np.float32),
+    return ((rng.normal(size=(h, sq, dh)) * qk_scale).astype(np.float32),
+            (rng.normal(size=(h, sk, dh)) * qk_scale).astype(np.float32),
             rng.normal(size=(h, sk, dh)).astype(np.float32))
 
 
@@ -461,8 +517,10 @@ def test_flash_attention_plain_pins_r1_against_the_oracle():
 
 
 def test_flash_attention_plain_bf16_is_within_one_ulp_of_pallas():
-    """bf16 operands: both compute in fp32 and round the output once, so
-    they differ by at most one bf16 ulp (atol/rtol 1e-2)."""
+    """bf16 operands: the plain version and the Pallas kernel both compute
+    in fp32 and round the output once, so they differ by at most one bf16
+    ulp (within atol/rtol 1e-2).  The CUDA bf16 kernel also rounds the
+    softmax weights to bf16 (``ref.py`` states its tolerance)."""
     from repro.kernels import attention as repro_attention
     jnp, _, _ = _reference()
     q, k, v = _qkv(4, 64, 64, 64, seed=7)
@@ -475,6 +533,50 @@ def test_flash_attention_plain_bf16_is_within_one_ulp_of_pallas():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, dtype=np.float32),
                                atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("h,sq,sk,dh,qk_scale",
+                         [(h, s, s, d, 1.0) for h, s, d in ATTN_GRID]
+                         + [c + (1.0,) for c in ATTN_CROSS]
+                         + [ATTN_LARGE + (LARGE_LOGITS[torch.bfloat16],)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tiled_plain_is_within_bf16_tolerance(h, sq, sk, dh,
+                                                              qk_scale,
+                                                              causal):
+    """The bf16 kernel's numerics (64-key tiles, scale after the product,
+    weights and normaliser from bf16-rounded weights) within 1e-2 of the
+    plain version and of the interpret-mode Pallas kernel, bf16 operands."""
+    jnp, repro_ops, _ = _reference()
+    q, k, v = _qkv(h, sq, sk, dh, seed=11, qk_scale=qk_scale)
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ref.flash_attention_tiled_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (h, sq, dh)
+    pallas = repro_ops.flash_attention(
+        *(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)),
+        causal=causal)
+    for want in (ref.flash_attention_plain(tq, tk, tv, causal=causal).float(),
+                 torch.from_numpy(np.asarray(pallas, dtype=np.float32))):
+        torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+
+
+def test_flash_attention_plain_fp32_conditioning():
+    """Why the fp32 large-logit case draws q, k x4 and not x8: the output's
+    error grows with the logits' size, and at x8 the fp32 plain version is
+    already more than the fp32 tolerance (3e-5) from the float64 answer,
+    while at x4 it is well within it."""
+    def error(qk_scale):
+        q, k, v = (_t(x) for x in _qkv(*ATTN_LARGE, seed=28,
+                                        qk_scale=qk_scale))
+        exact = torch.softmax(
+            (torch.einsum("hqd,hkd->hqk", q.double(), k.double())
+             / np.sqrt(ATTN_LARGE[3])).masked_fill(
+                 ~torch.ones(ATTN_LARGE[1], ATTN_LARGE[2],
+                             dtype=torch.bool).tril(), -np.inf), dim=-1)
+        exact = torch.einsum("hqk,hkd->hqd", exact, v.double())
+        return float((ref.flash_attention_plain(q, k, v).double()
+                      - exact).abs().max())
+    assert error(LARGE_LOGITS[torch.float32]) < 3e-5 / 2
+    assert error(LARGE_LOGITS[torch.bfloat16]) > 3e-5
 
 
 @pytest.mark.parametrize("h,sq,sk,dh", ATTN_CROSS)
@@ -494,8 +596,10 @@ def test_flash_attention_on_cpu_takes_any_lengths_and_launches_nothing(
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_equals_its_plain_version():
-    """K6 on the card, fp32 at 3e-5 and bf16 at 1e-2 (one bf16 ulp), over
-    the test grid and the cross, ragged and dh-128 cases."""
+    """K6 on the card, fp32 at 3e-5 and bf16 at 1e-2 (the tolerance
+    ``ref.py`` states), over the test grid, the cross, ragged and dh-128
+    cases, and logits large enough to move the running max inside a
+    tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
     if _build.find_nvcc() is None:
@@ -503,11 +607,13 @@ def test_cuda_flash_attention_equals_its_plain_version():
     ops.reset_launch_counts()
     cases = [(h, s, s, d) for h, s, d in ATTN_GRID] + ATTN_CROSS
     n = 0
-    for h, sq, sk, dh in cases:
+    for h, sq, sk, dh in cases + [ATTN_LARGE]:
         for causal in (True, False):
             for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 1e-2)):
+                big = LARGE_LOGITS[dtype] if (h, sq, sk, dh) == ATTN_LARGE \
+                    else 1.0
                 q, k, v = (_t(x).to("cuda", dtype)
-                           for x in _qkv(h, sq, sk, dh, seed=n))
+                           for x in _qkv(h, sq, sk, dh, seed=n, qk_scale=big))
                 got = ops.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 want = ref.flash_attention_plain(q, k, v, causal=causal)
