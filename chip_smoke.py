@@ -7,11 +7,17 @@ Phases, each printed as it ends; any failure exits non-zero before the
 last line:
 
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` name/count;
-2. build  — ``csrc/ndp.cu`` compiled for sm_90a from this checkout;
+2. build  — ``csrc/ndp.cu`` and ``csrc/attention.cu`` compiled for sm_90a
+   from this checkout; ptxas registers and spills, and per kernel its SASS
+   counts and loop bodies (the prefix adder's 16-byte loop, an element at
+   a time);
 3. kernels — each CUDA kernel held exactly equal to its plain PyTorch
    version over the kernel-test grids and the shapes the replays give it
-   (the bit-plane multiplier also on a ragged n, the jacobi1d length and
-   the dtypes' extreme values), flash attention within its tolerance (also
+   (the bit-plane multiplier and the prefix adder also on a ragged n, the
+   jacobi1d length and the dtypes' extreme values; the adder also on the
+   jacobi1d sweep's unaligned slices; the MWS sense on 1-6 pages of every
+   op, ragged, unaligned and with a tail), flash attention within its
+   tolerance (also
    with logits large enough to move the running max inside a tile), with
    CUDA-event times of the kernel, the plain version and the one PyTorch
    call that computes the same function, beside the card's least time for
@@ -131,12 +137,16 @@ ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
 # answer, over its 3e-5 tolerance, so no fp32 kernel could be held there.
 ATTN_LARGE = (2, 300, 300, 64)
 LARGE_LOGITS = {torch.bfloat16: 8.0, torch.float32: 4.0}
-# the bit-plane multiplier's edges: a ragged n, the jacobi1d replay length
-# (neither a multiple of 32 elements nor of a warp's 1024), and every
-# ordered pair of each dtype's extremes
-MUL_RAGGED = [(3, 37), (1, 655358)]
-MUL_EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
-                np.int8: [-128, 127, -1, 0, 1, 3]}
+# the bit-plane multiplier's and the prefix adder's edges: a ragged n, the
+# jacobi1d replay length (neither a multiple of 32 elements, nor of a
+# warp's 1024, nor of an adder block's chunk), and every ordered pair of
+# each dtype's extremes
+RAGGED = [(3, 37), (1, 655358)]
+EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
+            np.int8: [-128, 127, -1, 0, 1, 3]}
+# MWS page counts held on the card: the main path's 1-3, the kernel's
+# 4-page instance, and two through its general instance
+MWS_PAGES = range(1, 7)
 # the serving path: the default --arch of repro.launch.serve
 SERVE_ARCH = "tinyllama-1.1b"
 # full width and depth, bf16: two batches of four 1024-token prompts
@@ -226,14 +236,50 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# one-letter and literal template arguments of an Itanium-mangled name
+_MANGLED_ARG = re.compile(r"([hjxyf])|L([ib])(\d+)E")
+_ELEM = {"h": "u8", "j": "u32", "x": "i64", "y": "u64", "f": "f32"}
+
+
+def kernel_label(name: str) -> str:
+    """A readable name of one kernel instance: the ``*_kernel`` identifier
+    of the mangled ``name`` and its template arguments (h uint8, j uint32,
+    x long long, f float, Li<k>E an int, Lb<k>E a bool)."""
+    for digits in re.finditer(r"(?=(\d+))", name):
+        end = digits.start() + len(digits.group(1))
+        ident = name[end:end + int(digits.group(1))]
+        if not ident.endswith("_kernel"):
+            continue
+        rest, args = name[end + len(ident):], []
+        if rest.startswith("I"):
+            pos = 1
+            while (m := _MANGLED_ARG.match(rest, pos)) is not None:
+                args.append(_ELEM[m.group(1)] if m.group(1)
+                            else int(m.group(3)))
+                pos = m.end()
+        if ident == "mws_kernel" and len(args) == 4:
+            elem, op, pages, index = args
+            args = [elem, MWS_OPS[op], f"{pages or 'any'} pages",
+                    "32-bit index" if index == "u32" else "64-bit index"]
+        elif ident == "bitserial_add_kernel" and len(args) == 2:
+            args = [args[0], "16-byte I/O" if args[1] else "unaligned"]
+        elif ident == "flash_attn_mma_kernel":
+            args = ["bf16", f"dh {args[0]}"]
+        elif ident == "flash_attn_kernel":
+            args = [args[0], f"dh {args[1]}"]
+        return f"{ident}<{', '.join(map(str, args))}>" if args else ident
+    return name
+
+
 def sass_report(lib_path: str, nvcc: str) -> None:
     """Print, per kernel, what the compiler made of its loops: SASS
     instruction count, LOP3/IMAD/SHF/HMMA counts (static: code the compiler
     copies for a divergent warp counts again), the length of each loop
     body (instructions from a backward branch's target to the branch), and
     its registers, stack and static shared bytes (``cuobjdump
-    -res-usage``).  Informational: a missing ``cuobjdump`` is reported, not
-    fatal."""
+    -res-usage``).  For the prefix adder, the body of its 16-byte loop
+    (the loop that holds a 16-byte load) per element, and its opcodes.
+    Informational: a missing ``cuobjdump`` is reported, not fatal."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"  sass: {tool} not found")
@@ -245,44 +291,42 @@ def sass_report(lib_path: str, nvcc: str) -> None:
         subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
                        text=True, check=True, timeout=120).stdout))
     for chunk in sass.split("Function : ")[1:]:
-        name = label = chunk.split()[0]
-        # a mangled name spells each identifier as <length><identifier>;
-        # template args follow the kernel's: h uint8, j uint32, Li<k>E the
-        # MWS op code; f float, Li<dh>E the attention's head dim (the
-        # tensor-core kernel has the head dim alone: bf16)
-        for digits in re.finditer(r"(?=(\d+))", name):
-            end = digits.start() + len(digits.group(1))
-            ident = name[end:end + int(digits.group(1))]
-            if not ident.endswith("_kernel"):
-                continue
-            targs = re.match(r"I([hj])(?:Li(\d)E)?E",
-                             name[end + len(ident):])
-            attn = re.match(r"I(f)?Li(\d+)EE", name[end + len(ident):])
-            label = ident
-            if attn:
-                elem = "f32" if attn.group(1) else "bf16"
-                label = f"{ident}<{elem}, dh {attn.group(2)}>"
-            elif targs:
-                elem = {"h": "u8", "j": "u32"}[targs.group(1)]
-                op = (f", {MWS_OPS[int(targs.group(2))]}"
-                      if targs.group(2) is not None else "")
-                label = f"{ident}<{elem}{op}>"
-            break
-        instrs = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                            r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)
-        ops = [op.split(".")[0] for _, op, _ in instrs]
-        loops = []
+        name = chunk.split()[0]
+        label = kernel_label(name)
+        instrs = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+            r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)]
+        ops_ = [op.split(".")[0] for _, op, _ in instrs]
+        loops = []                               # (first, last address)
         for addr, op, rest in instrs:
             target = re.match(r"\s*(0x[0-9a-f]+)", rest)
             if op.startswith("BRA") and target and \
-                    int(target.group(1), 16) < int(addr, 16):
-                loops.append((int(addr, 16) - int(target.group(1), 16))
-                             // 16 + 1)
-        real = [o for o in ops if o != "NOP"]
+                    int(target.group(1), 16) < addr:
+                loops.append((int(target.group(1), 16), addr))
+        real = [o for o in ops_ if o != "NOP"]
         print(f"  sass {label}: {len(real)} instructions, LOP3 "
-              f"{ops.count('LOP3')}, IMAD {ops.count('IMAD')}, SHF "
-              f"{ops.count('SHF')}, HMMA {ops.count('HMMA')}; loop bodies "
-              f"{sorted(loops)}; {usage.get(name, 'resource usage not found')}")
+              f"{ops_.count('LOP3')}, IMAD {ops_.count('IMAD')}, SHF "
+              f"{ops_.count('SHF')}, HMMA {ops_.count('HMMA')}; loop bodies "
+              f"{sorted((b - a) // 16 + 1 for a, b in loops)}; "
+              f"{usage.get(name, 'resource usage not found')}")
+        if label.startswith("bitserial_add_kernel") and "16-byte" in label:
+            elems = 4 if "u32" in label else 16
+            found = False
+            for first, last in loops:
+                body = [op for addr, op, _ in instrs
+                        if first <= addr <= last and op != "NOP"]
+                if not any(op.startswith("LDG") and ".128" in op
+                           for op in body):
+                    continue
+                found = True
+                hist = {}
+                for op in body:
+                    hist[op] = hist.get(op, 0) + 1
+                print(f"    16-byte loop body: {len(body)} instructions for "
+                      f"{elems} elements a thread, {len(body) / elems:g} an "
+                      f"element; opcodes {dict(sorted(hist.items()))}")
+            if not found:
+                print("    16-byte loop body: no loop with a 16-byte load")
 
 
 def time_ms(fn, reps: int, clock_hz: float, rounds: int = 5) -> float:
@@ -321,6 +365,15 @@ def plane_mul_ops(w: int) -> float:
     adders = 3 * w * (w + 1) // 2
     transposes = 3 * 6 * (w // 2) * int(math.log2(w))
     return (adders + transposes) / 32
+
+
+def prefix_add_ops(w: int) -> int:
+    """Instructions per element of the prefix adder for W-bit elements (one
+    a word): p and g, log2 W levels of g |= p & (g << d) (a shift and a
+    LOP3), log2 W - 1 of p &= p << d (a shift and an AND), and the sum's
+    shift and 3-input XOR."""
+    levels = int(math.log2(w))
+    return 2 + 2 * levels + 2 * (levels - 1) + 2
 
 
 def rand(rng, shape, dtype):
@@ -697,8 +750,8 @@ def main() -> int:
     cases += [("bitserial_add", np.int32, PAGE_SHAPE, None),
               ("bitserial_mul", np.int32, PAGE_SHAPE, None)]
     cases += [("bitserial_mul", dt, shape, None)
-              for dt in (np.int32, np.int8) for shape in MUL_RAGGED]
-    cases += [("bitserial_mul", dt, None, "extremes") for dt in MUL_EXTREMES]
+              for dt in (np.int32, np.int8) for shape in RAGGED]
+    cases += [("bitserial_mul", dt, None, "extremes") for dt in EXTREMES]
     cases += [("int8_matmul", np.int8, shape, None)
               for shape in MATMUL_SHAPES]
     cases += [("int8_matmul", np.int8, shape, "min")
@@ -707,7 +760,9 @@ def main() -> int:
     def operands(name, dt, shape, arg):
         """The operands of one call: (a, b) for the elementwise kernels
         (every ordered pair of the dtype's extremes as [1, n] for ``arg ==
-        "extremes"``), the stack for MWS, (stack, query) with the query
+        "extremes"``; for ``arg == "+k"``, a[:, :n] and a[:, k:k + n] of one
+        buffer, as the jacobi1d sweep slices it, b not 16-byte aligned for k
+        = 1, 2), the stack for MWS, (stack, query) with the query
         planted as record 0 of row 3 for search, int8 (a[M, K], b[K, N])
         for the GEMM (all -128 for ``arg == "min"``)."""
         if name == "int8_matmul":
@@ -726,10 +781,14 @@ def main() -> int:
             stack[3, :arg] = query
             return stack, query
         if arg == "extremes":
-            a, b = np.meshgrid(np.array(MUL_EXTREMES[dt], dt),
-                               np.array(MUL_EXTREMES[dt], dt))
+            a, b = np.meshgrid(np.array(EXTREMES[dt], dt),
+                               np.array(EXTREMES[dt], dt))
             return (torch.from_numpy(a.reshape(1, -1)).cuda(),
                     torch.from_numpy(b.reshape(1, -1)).cuda())
+        if isinstance(arg, str) and arg.startswith("+"):
+            n, k = shape[1], int(arg[1:])
+            base = rand(rng, (1, n + 2), dt)
+            return base[:, :n], base[:, k:k + n]
         return rand(rng, shape, dt), rand(rng, shape, dt)
 
     kernel_fn = {"bitserial_add": lambda a, b, arg: ops.bitserial_add(a, b),
@@ -768,6 +827,42 @@ def main() -> int:
                                      f"the int32-wrapped {wrapped}")
     print(f"{len(cases)} cases: every kernel equal to its plain version")
 
+    # the prefix adder and the MWS sense off their 16-byte paths: ragged n,
+    # extremes, the jacobi1d slices (+1 and +2 elements), int8; 1-6 pages
+    # of every op on whole and ragged pages, on a stack one element past an
+    # allocation's start, and on one page whose n leaves a tail
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        flat.copy_(t.reshape(-1))
+        return flat.reshape(t.shape)
+
+    n = jacobi1d.SCALES["paper"]["n"] - 2
+    edges = []                                  # (kernel, operands, arg)
+    for dt in (np.int32, np.int8):
+        edges += [("bitserial_add", operands("bitserial_add", dt, shape,
+                                             arg), None)
+                  for shape, arg in [(sh, None) for sh in RAGGED]
+                  + [(None, "extremes"), ((1, n), "+1"), ((1, n), "+2")]]
+        stacks = [rand(rng, (1, 1, 4099), dt)]
+        for pages in MWS_PAGES:
+            stacks += [rand(rng, (pages, 16, 256), dt),
+                       rand(rng, (pages, 3, 37), dt),
+                       unaligned(rand(rng, (pages, 16, 256), dt))]
+        edges += [("mws_bitwise", (st,), op) for st in stacks
+                  for op in MWS_OPS]
+    for name, xs, arg in edges:
+        got = kernel_fn[name](*xs, arg)
+        want = plain_fn[name](*xs, arg)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} {xs[0].dtype} {tuple(xs[0].shape)} arg={arg} at "
+                f"{[x.data_ptr() % 16 for x in xs]} bytes past 16: kernel "
+                f"!= plain version")
+    print(f"{len(edges)} prefix-adder and MWS cases on ragged, unaligned, "
+          f"extreme and tail paths: equal to the plain versions")
+    del edges, stacks, xs, got, want       # out of the serve's peak memory
+
     # flash attention: fp32 and bf16, causal or not, against the plain
     # version at ATTN_TOL
     n_attn, worst = 0, {dtype: 0.0 for dtype in ATTN_TOL}
@@ -802,17 +897,17 @@ def main() -> int:
     # The GEMM's operands fit in L2 and the timing loop reuses them; its
     # time with cold operands (cycling through sets of more than twice the
     # L2) is printed beside it.  For the PuD/IFP arithmetic the gate-level
-    # circuit's own op count per element (the adder's 3W+1, the bit-plane
+    # circuit's own op count per element (the prefix adder's, the bit-plane
     # multiplier's full adders and transposes, plane_mul_ops, the IFP
     # multiplier's 5 * bits) is printed beside it: it is the model's method,
     # not the function's least work, so it bounds nothing.
-    n = jacobi1d.SCALES["paper"]["n"] - 2
     aes_rows = WORKLOADS["aes"].SCALES["paper"]["n"] // 4096
     keys = xor_filter.SCALES["paper"]["n_keys"]
     slots = xor_filter.SCALES["paper"]["slots"]
     m = WORKLOADS["heat3d"].SCALES["paper"]["n"] - 2
     w = 32                                       # int32 lanes
-    gate_ops = {"bitserial_add": 3 * w + 1, "bitserial_mul": plane_mul_ops(w),
+    gate_ops = {"bitserial_add": prefix_add_ops(w),
+                "bitserial_mul": plane_mul_ops(w),
                 "shift_add_mul": 5 * 8}
     # torch._int_mm: cuBLASLt's INT8 GEMM, K5's yardstick only (the port
     # never calls it)
@@ -824,6 +919,8 @@ def main() -> int:
                    "xor": torch.bitwise_xor}
     timed = [  # (label, kernel, shape, arg)
         ("jacobi1d", "bitserial_add", (1, n), None),
+        ("jacobi1d", "bitserial_add", (1, n), "+1"),   # unaligned slices
+        ("jacobi1d", "bitserial_add", (1, n), "+2"),
         ("jacobi1d", "bitserial_mul", (1, n), None),
         ("jacobi1d", "shift_add_mul", (1, n), 8),
         ("page", "bitserial_add", PAGE_SHAPE, None),

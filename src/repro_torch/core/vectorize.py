@@ -281,6 +281,30 @@ def _names(target) -> Tuple[str, str]:
     return name, _ATEN_TO_PRIM.get(name, name)
 
 
+def _while_operands(node) -> list:
+    """The operands of JAX's ``while`` for a ``while_loop`` HOP node: cond
+    consts, body consts, carries.  The HOP is (cond, body, carries,
+    additional inputs), and each sub-graph's placeholders are the carries
+    and then every additional input.  A jaxpr's consts are the closed-over
+    tensors it uses, in the order of first use, so each sub-graph gives
+    the additional inputs its nodes read, in that order; a tensor that
+    both sub-graphs read is an operand twice, as in the jaxpr."""
+    gm = node.graph.owning_module
+    carries, extra = list(node.args[2]), list(node.args[3])
+    operands = []
+    for sub in node.args[:2]:
+        graph = getattr(gm, sub.target).graph
+        lifted = [n for n in graph.nodes
+                  if n.op == "placeholder"][len(carries):]
+        used = {}                                # dict: insertion order
+        for n in graph.nodes:
+            for a in n.all_input_nodes:
+                if a in lifted:
+                    used.setdefault(a)
+        operands += [extra[lifted.index(p)] for p in used]
+    return operands + carries
+
+
 class _Vectorizer:
     def __init__(self, spec: SSDSpec, elem_bytes: int, quantize: bool,
                  max_instrs: int, matmul_k_steps: int = 16):
@@ -462,10 +486,7 @@ class _Vectorizer:
 
     def _fallback_control(self, node, env: Dict, prim: str) -> None:
         if prim == "while":
-            # JAX's ``while`` reads (cond consts, body consts, carries); the
-            # HOP is (cond, body, carries, additional inputs), the lifted
-            # closures of cond and body last.  The sub-graphs are not walked.
-            operands = list(node.args[3]) + list(node.args[2])
+            operands = _while_operands(node)
         else:
             operands = pytree.tree_leaves(node.args)
         ins = [self.pages_for(env, a) for a in operands]

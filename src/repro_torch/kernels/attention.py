@@ -20,9 +20,12 @@ two CUDA kernels of ``csrc/attention.cu``, chosen by the element type:
   rate.
 
 The output is in q's type; the causal mask is ``q_pos >= k_pos`` aligned
-top-left, as the TPU kernel's; any Sq and Sk pass unpadded.  q, k, v and
-the output must be 16-byte aligned (``cp.async`` and ``ldmatrix`` read
-16-byte chunks); the wrapper checks it and the return of every call.
+top-left, as the TPU kernel's; any Sq and Sk pass unpadded.  Both kernels
+read q, k and v in 16-byte chunks (``cp.async`` and ``ldmatrix`` in
+bf16), so the wrapper copies an operand whose data pointer is not 16-byte
+aligned (a contiguous view at an odd offset) into a fresh tensor first;
+the output is a fresh tensor.  The wrapper checks the return of every
+call.
 
 ``LAUNCHES`` counts launches of either kernel.
 """
@@ -58,17 +61,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if sq < 1 or sk < 1:
         raise ValueError(f"flash_attention: empty sequence, Sq {sq}, Sk {sk}")
+    q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
-    misaligned = [name for name, t in zip("q k v out".split(), (q, k, v, out))
-                  if t.data_ptr() % 16]
-    if misaligned:
-        raise ValueError(f"flash_attention: {misaligned} not 16-byte aligned")
     _build.call(f"ndp_flash_attn_{_SUFFIX[q.dtype]}", q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), heads, sq, sk, dh,
                 int(causal), scale * math.log2(math.e),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES += 1
     return out
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its data pointer is 16-byte aligned, else a copy in
+    a fresh (aligned) allocation."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    copy = torch.empty_like(t)
+    copy.copy_(t)
+    return copy
 
 
 def mma_smem_bytes(dh: int) -> int:

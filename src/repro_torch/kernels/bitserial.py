@@ -1,19 +1,28 @@
 """SIMDRAM/MIMDRAM bit-serial arithmetic on Hopper (PuD-SSD model).
 
 Replaces the Pallas kernels ``repro/kernels/bitserial.py`` ``_add_kernel``
-and ``_mul_kernel`` with the CUDA kernels of ``csrc/ndp.cu``.  The
-ripple-carry adder and the multiplier use ONLY the PuD primitive set
-{AND, OR, XOR, NOT, MAJ, shift} — the gate-level circuits SIMDRAM
-synthesizes — so each kernel is a functional model of the in-DRAM
-computation.
+and ``_mul_kernel`` with the CUDA kernels of ``csrc/ndp.cu``.  The adder
+and the multiplier use ONLY the PuD primitive set {AND, OR, XOR, NOT, MAJ,
+shift} — gate-level circuits as SIMDRAM synthesizes them — so each kernel
+is a functional model of the in-DRAM computation; no hardware add or
+multiply touches the data.
 
-The adder (``bitserial_add_kernel``): one flat grid-stride pass over the
-``n`` contiguous elements, one element per thread per step, neighbouring
-threads on neighbouring addresses, its 32 XOR/AND-shift rounds in
-registers on the unsigned view.  Its function (a + b) moves 3 * itemsize
-bytes per element and does one op, so HBM bounds it; its rounds compile
-to ~100 SASS instructions per element, under that bound, and it runs
-within about 2x of it.
+The adder (``bitserial_add_kernel``) is a log-depth (Kogge-Stone) prefix
+circuit, where the TPU kernel ripples the carry through W rounds (3W + 1
+operations an element, 97 for int32, which would bind an H100 by integer
+issue above the function's bytes): p = a ^ b, g = a & b, then for d = 1,
+2, ..., W/2, g |= p & (g << d) and (but at the last level) p &= p << d, and
+the sum is (a ^ b) ^ (g << 1) — ~22 instructions an int32 element.  int8
+runs as SWAR lanes, four to a 32-bit word, each shifted term masked so no
+carry crosses a byte.  A thread adds 16 bytes with one 16-byte load of
+each operand and one store where a, b and out are 16-byte aligned; the
+ragged end and unaligned operands (the jacobi1d sweep's ``a[1:-1]`` and
+``a[2:]``) go an element at a time, 16 bytes' worth a thread, each load
+still coalesced, through the same circuit.  Its function moves 3 *
+itemsize bytes an element for one op, so HBM bounds it, and the circuit
+issues under that bound (PERF.md).  ``ref.bitserial_add_prefix_plain``
+rehearses the circuit on the CPU; the card holds the kernel against
+``ref.bitserial_add_plain``, the ripple.
 
 The multiplier (``bitserial_mul_planes_kernel``) lays the operands out as
 SIMDRAM does, vertically: a lane owns 32 elements and turns each operand

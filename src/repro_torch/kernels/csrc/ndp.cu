@@ -1,7 +1,9 @@
 // Functional models of the SSD's NDP resources, written for Hopper (sm_90a).
 //
-//   bitserial add        — PuD (SIMDRAM/MIMDRAM) bit-serial add;
-//                          replaces repro/kernels/bitserial.py _add_kernel.
+//   bitserial add        — PuD (SIMDRAM/MIMDRAM) add as a log-depth
+//                          prefix circuit of row operations; replaces
+//                          repro/kernels/bitserial.py _add_kernel.  See
+//                          its own note below.
 //   bitserial mul        — PuD multiply on SIMDRAM's vertical bit-planes;
 //                          replaces repro/kernels/bitserial.py _mul_kernel.
 //                          See its own note below.
@@ -11,7 +13,7 @@
 //   mws                  — IFP (Flash-Cosmos) multi-wordline sensing: a
 //                          bulk and/or/xor/nand/nor over n_ops stacked
 //                          pages; replaces repro/kernels/mws.py
-//                          _mws_kernel.
+//                          _mws_kernel.  See its own note below.
 //   search               — IFP match line: XNOR of every record word with
 //                          the query, wired-AND over the record; replaces
 //                          repro/kernels/search.py _search_kernel.
@@ -20,16 +22,17 @@
 //                          replaces repro/kernels/int8_matmul.py
 //                          _matmul_kernel.  See its own note below.
 //
-// Each elementwise kernel (all but int8_matmul) keeps the gate-level
-// circuit of the TPU kernel, because that circuit *is* the model of the
-// in-memory computation: the adder is built only from XOR (sum) and
-// AND-then-shift (carry) row operations, the IFP multiplier from
-// predicated shifted partial products, the PuD multiplier from full
-// adders (XOR sum, MAJ carry) over bit-planes.  It is not carried over
-// block by block: no VMEM tiles and no (8, 128) padding, but a grid-stride
-// pass over n contiguous elements (one element a thread, neighbouring
-// threads on neighbouring addresses; the multiplier, 32 elements a thread),
-// the ragged end masked by the index test.
+// Each elementwise kernel (all but int8_matmul) computes with the PuD or
+// IFP primitives of the TPU kernel, because the gate-level circuit *is* the
+// model of the in-memory computation: the adder is built only from AND, OR,
+// XOR and shift row operations, the IFP multiplier from predicated shifted
+// partial products, the PuD multiplier from full adders (XOR sum, MAJ
+// carry) over bit-planes.  It is not carried over block by block: no VMEM
+// tiles and no (8, 128) padding, but a pass over n contiguous elements,
+// neighbouring threads on neighbouring addresses (the adder and the MWS
+// sense 16 bytes a thread, the IFP multiplier and the match line one
+// element or record a thread, the PuD multiplier 32 elements a thread), the
+// ragged end masked by the index test.
 //
 // All arithmetic runs on unsigned views (uint8_t / uint32_t):
 //   * a left shift of a negative signed value is undefined before C++20;
@@ -57,29 +60,97 @@ struct Width {
   static constexpr int value = 8 * static_cast<int>(sizeof(U));
 };
 
-// W-round ripple: s = x ^ y (XOR row-op), c = (x & y) << 1 (MAJ row-op +
-// shift); after W rounds the carry has left the word.
-template <typename U>
-__device__ __forceinline__ U ripple_add(U x, U y) {
-#pragma unroll
-  for (int r = 0; r < Width<U>::value; ++r) {
-    const U s = static_cast<U>(x ^ y);
-    const U c = static_cast<U>(static_cast<U>(x & y) << 1);
-    x = s;
-    y = c;
-  }
-  return static_cast<U>(x | y);
+// PuD add, a + b wrapped to W bits, as a log-depth (Kogge-Stone) prefix
+// adder built from the PuD row operations: AND, OR, XOR and shift.  No
+// hardware add touches the data.
+//
+// The TPU kernel ripples the carry through W rounds of s = x ^ y, c = (x &
+// y) << 1: 3W + 1 operations an element (97 for int32).  On an H100 that
+// is issue-bound (655358 int32 x 97 operations at the card's INT32 rate
+// take ~3.8 us, over the function's 2.35 us of bytes).  The prefix adder
+// computes the same sum in log2 W levels:
+//   p = a ^ b, g = a & b                    (propagate, generate)
+//   for d = 1, 2, ..., W/2:  g |= p & (g << d);  p &= p << d
+//                            (the last level skips p)
+//   sum = (a ^ b) ^ (g << 1)
+// g ends as the carry out of every bit; each "g |= p & t" is one LOP3, so
+// int32 takes ~22 instructions an element, ~0.9 us of issue at the
+// jacobi1d shape: under the bytes bound, which is what bounds it.
+//
+// int8 runs SWAR: four lanes a 32-bit word, every shifted term masked with
+// the bits at or above d of each byte (0xFE.., 0xFC.., 0xF0..), so no carry
+// crosses a byte.
+//
+// Layout.  A block takes chunks of kThreads * 16 bytes.  Where a, b and out
+// are 16-byte aligned, a thread reads its 16 bytes of each operand with one
+// 16-byte load (4 int32 or 16 int8 elements, as 4 words) and stores 16
+// bytes; the grid covers n in one pass up to kMaxBlocks.  The ragged last
+// chunk, and every chunk of operands that are not 16-byte aligned (the
+// jacobi1d sweep adds a[1:-1] and a[2:], at +4 and +8 bytes), go an element
+// at a time: element k of a thread at chunk + k * kThreads + thread, so
+// each load is still coalesced, and the same 16 bytes a thread are packed
+// into 4 words (int8: 4 elements a word, in any order: lanes are
+// independent) and run through the same circuit.
+
+// What a word shifted left by d keeps so that no bit crosses into the next
+// W-bit lane: all of it for W = 32 (the word is the lane), bits d..7 of
+// every byte for W = 8.
+template <int W>
+__device__ __forceinline__ constexpr uint32_t lane_mask(int d) {
+  return W == 32 ? ~0u : ((0xffu << d) & 0xffu) * 0x01010101u;
 }
 
 template <typename U>
-__global__ void bitserial_add_kernel(const U* __restrict__ a,
-                                     const U* __restrict__ b,
-                                     U* __restrict__ out, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = ripple_add(a[i], b[i]);
+__device__ __forceinline__ uint32_t prefix_add(uint32_t a, uint32_t b) {
+  constexpr int W = Width<U>::value;
+  uint32_t p = a ^ b;
+  uint32_t g = a & b;
+#pragma unroll
+  for (int d = 1; d < W; d *= 2) {
+    g |= p & ((g << d) & lane_mask<W>(d));
+    if (2 * d < W) p &= (p << d) & lane_mask<W>(d);
+  }
+  return (a ^ b) ^ ((g << 1) & lane_mask<W>(1));
+}
+
+template <typename U, bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+    bitserial_add_kernel(const U* __restrict__ a, const U* __restrict__ b,
+                         U* __restrict__ out, long long n) {
+  constexpr int kVec = 16 / sizeof(U);           // elements a thread
+  constexpr int kLanes = 4 / sizeof(U);          // elements a word
+  constexpr long long kChunk = static_cast<long long>(kThreads) * kVec;
+  const long long whole = kAligned ? n / kChunk : 0;
+  long long c = blockIdx.x;
+  for (; c < whole; c += gridDim.x) {
+    const long long v = c * kThreads + threadIdx.x;
+    const uint4 x = reinterpret_cast<const uint4*>(a)[v];
+    const uint4 y = reinterpret_cast<const uint4*>(b)[v];
+    reinterpret_cast<uint4*>(out)[v] =
+        make_uint4(prefix_add<U>(x.x, y.x), prefix_add<U>(x.y, y.y),
+                   prefix_add<U>(x.z, y.z), prefix_add<U>(x.w, y.w));
+  }
+  for (; c * kChunk < n; c += gridDim.x) {
+    const long long base = c * kChunk + threadIdx.x;
+    uint32_t x[4] = {0, 0, 0, 0}, y[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const long long i = base + static_cast<long long>(k) * kThreads;
+      const int shift = Width<U>::value * (k % kLanes);
+      if (i < n) {
+        x[k / kLanes] |= static_cast<uint32_t>(a[i]) << shift;
+        y[k / kLanes] |= static_cast<uint32_t>(b[i]) << shift;
+      }
+    }
+    uint32_t s[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s[w] = prefix_add<U>(x[w], y[w]);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const long long i = base + static_cast<long long>(k) * kThreads;
+      const int shift = Width<U>::value * (k % kLanes);
+      if (i < n) out[i] = static_cast<U>(s[k / kLanes] >> shift);
+    }
   }
 }
 
@@ -348,32 +419,98 @@ __global__ void shift_add_mul_kernel(const U* __restrict__ a,
 enum MwsOp : int { kAnd = 0, kOr = 1, kXor = 2, kNand = 3, kNor = 4 };
 
 // Flash-Cosmos sense of n_ops wordlines: element i of every operand page
-// (stack[k * n + i]) is read once and folded into a register, as the
-// wired-AND (or the OR across blocks) folds the cells of a NAND string in
-// one array sense; nand/nor invert the sensed value.  For each k the warp
-// reads 32 neighbouring elements of page k.
-template <typename U, int kOp>
-__global__ void mws_kernel(const U* __restrict__ stack, U* __restrict__ out,
-                           long long n_ops, long long n) {
-  constexpr bool kIsAnd = kOp == kAnd || kOp == kNand;
-  constexpr bool kIsOr = kOp == kOr || kOp == kNor;
-  constexpr bool kNegate = kOp == kNand || kOp == kNor;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    U acc = kIsAnd ? static_cast<U>(~U(0)) : U(0);
-    for (long long k = 0; k < n_ops; ++k) {
-      const U page = stack[k * n + i];
-      if (kIsAnd) {
-        acc = static_cast<U>(acc & page);
-      } else if (kIsOr) {
-        acc = static_cast<U>(acc | page);
-      } else {
-        acc = static_cast<U>(acc ^ page);
-      }
+// (stack[k * n + i]) is read once and folded (AND for and/nand, OR for
+// or/nor, XOR for xor), as the wired-AND (or the OR across blocks) folds
+// the cells of a NAND string in one array sense; nand/nor invert the sensed
+// value.
+//
+// Bound on an H100: the bytes, (n_ops + 1) * itemsize an element, against
+// n_ops - 1 one-instruction folds.  So the kernel is about keeping loads in
+// flight.  A thread senses 16 bytes of the output: a 16-byte load of each
+// page at the same offset (the fold is bitwise, so int8 and int32 are the
+// same words).  For the page counts the main path uses (kPages 1..4: aes
+// senses 1, 2 or 3 pages, xor_filter 3) every page's load is issued before
+// the first fold; any other count (kPages 0) goes in groups of 4 loads,
+// then their folds.  Indices are 32-bit (I) where n * n_ops fits, else
+// 64-bit.  16-byte loads need the stack, the output and every page (a page
+// is n elements) 16-byte aligned; else, and for the ragged end, elements go
+// one at a time with the same fold.
+template <int kOp>
+__device__ __forceinline__ uint32_t mws_fold(uint32_t acc, uint32_t x) {
+  if (kOp == kAnd || kOp == kNand) return acc & x;
+  if (kOp == kOr || kOp == kNor) return acc | x;
+  return acc ^ x;
+}
+
+template <int kOp>
+__device__ __forceinline__ uint4 mws_fold(uint4 acc, uint4 x) {
+  return make_uint4(mws_fold<kOp>(acc.x, x.x), mws_fold<kOp>(acc.y, x.y),
+                    mws_fold<kOp>(acc.z, x.z), mws_fold<kOp>(acc.w, x.w));
+}
+
+template <int kOp>
+__device__ __forceinline__ uint32_t mws_sensed(uint32_t acc) {
+  return kOp == kNand || kOp == kNor ? ~acc : acc;
+}
+
+template <int kOp>
+__device__ __forceinline__ uint4 mws_sensed(uint4 acc) {
+  return make_uint4(mws_sensed<kOp>(acc.x), mws_sensed<kOp>(acc.y),
+                    mws_sensed<kOp>(acc.z), mws_sensed<kOp>(acc.w));
+}
+
+// The sense of item i (an element, or 16 bytes as a uint4) over the pages
+// src[k * page + i]; A is the accumulator type (uint32_t or uint4).
+template <int kOp, int kPages, typename A, typename T, typename I>
+__device__ __forceinline__ A mws_sense(const T* __restrict__ src, I page,
+                                       I i, int n_ops) {
+  A acc;
+  if constexpr (kPages > 0) {
+    A x[kPages];
+#pragma unroll
+    for (int k = 0; k < kPages; ++k) x[k] = src[k * page + i];
+    acc = x[0];
+#pragma unroll
+    for (int k = 1; k < kPages; ++k) acc = mws_fold<kOp>(acc, x[k]);
+  } else {
+    const uint32_t init = kOp == kAnd || kOp == kNand ? ~0u : 0u;
+    if constexpr (sizeof(A) == 16) {
+      acc = make_uint4(init, init, init, init);
+    } else {
+      acc = init;
     }
-    out[i] = kNegate ? static_cast<U>(~acc) : acc;
+    int k = 0;
+    for (; k + 4 <= n_ops; k += 4) {
+      A x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = src[(k + j) * page + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc = mws_fold<kOp>(acc, x[j]);
+    }
+    for (; k < n_ops; ++k) acc = mws_fold<kOp>(acc, A(src[k * page + i]));
+  }
+  return mws_sensed<kOp>(acc);
+}
+
+template <typename U, int kOp, int kPages, typename I>
+__global__ void __launch_bounds__(kThreads)
+    mws_kernel(const U* __restrict__ stack, U* __restrict__ out, int n_ops,
+               I n, int vector) {
+  constexpr int kVec = 16 / sizeof(U);
+  const I stride = static_cast<I>(gridDim.x) * kThreads;
+  I i = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  I done = 0;
+  if (vector) {
+    const I nv = n / kVec;
+    for (I v = i; v < nv; v += stride) {
+      reinterpret_cast<uint4*>(out)[v] = mws_sense<kOp, kPages, uint4>(
+          reinterpret_cast<const uint4*>(stack), nv, v, n_ops);
+    }
+    done = nv * kVec;
+  }
+  for (i += done; i < n; i += stride) {
+    out[i] = static_cast<U>(
+        mws_sense<kOp, kPages, uint32_t>(stack, n, i, n_ops));
   }
 }
 
@@ -488,8 +625,10 @@ int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-inline unsigned int grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
+// blocks of kThreads that cover n items, per_block items a block, in one
+// pass where n allows it
+inline unsigned int grid_for(long long n, long long per_block = kThreads) {
+  long long blocks = (n + per_block - 1) / per_block;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   return static_cast<unsigned int>(blocks);
@@ -499,10 +638,18 @@ template <typename U>
 cudaError_t launch_add(const void* a, const void* b, void* out, long long n,
                        void* stream) {
   if (n <= 0) return cudaSuccess;
-  bitserial_add_kernel<U><<<grid_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const U*>(a), static_cast<const U*>(b),
-      static_cast<U*>(out), n);
+  constexpr long long kChunk = kThreads * (16 / sizeof(U));
+  const unsigned int blocks = grid_for(n, kChunk);
+  const auto* x = static_cast<const U*>(a);
+  const auto* y = static_cast<const U*>(b);
+  auto* o = static_cast<U*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+        reinterpret_cast<uintptr_t>(out)) % 16) == 0) {
+    bitserial_add_kernel<U, true><<<blocks, kThreads, 0, st>>>(x, y, o, n);
+  } else {
+    bitserial_add_kernel<U, false><<<blocks, kThreads, 0, st>>>(x, y, o, n);
+  }
   return cudaGetLastError();
 }
 
@@ -536,30 +683,66 @@ cudaError_t launch_shift_add(const void* a, const void* b, void* out,
   return cudaGetLastError();
 }
 
+template <typename U, int kOp, int kPages, typename I>
+void launch_mws_instance(const void* stack, void* out, int n_ops, I n,
+                         bool vector, cudaStream_t st) {
+  const long long items = vector ? n / (16 / sizeof(U)) : n;
+  mws_kernel<U, kOp, kPages, I><<<grid_for(items > 0 ? items : n),
+                                  kThreads, 0, st>>>(
+      static_cast<const U*>(stack), static_cast<U*>(out), n_ops, n,
+      vector);
+}
+
+template <typename U, int kOp, typename I>
+void launch_mws_pages(const void* stack, void* out, int n_ops, I n,
+                      bool vector, cudaStream_t st) {
+  switch (n_ops) {
+    case 1:
+      return launch_mws_instance<U, kOp, 1>(stack, out, n_ops, n, vector, st);
+    case 2:
+      return launch_mws_instance<U, kOp, 2>(stack, out, n_ops, n, vector, st);
+    case 3:
+      return launch_mws_instance<U, kOp, 3>(stack, out, n_ops, n, vector, st);
+    case 4:
+      return launch_mws_instance<U, kOp, 4>(stack, out, n_ops, n, vector, st);
+    default:
+      return launch_mws_instance<U, kOp, 0>(stack, out, n_ops, n, vector, st);
+  }
+}
+
+template <typename U, int kOp>
+void launch_mws_op(const void* stack, void* out, int n_ops, long long n,
+                   bool vector, cudaStream_t st) {
+  // 32-bit indices where every index of the stack, plus a grid's stride,
+  // stays below 2**31
+  if ((n_ops > 1 ? n_ops : 1) * n <= (1LL << 31) - kMaxBlocks * kThreads) {
+    launch_mws_pages<U, kOp, uint32_t>(stack, out, n_ops,
+                                       static_cast<uint32_t>(n), vector, st);
+  } else {
+    launch_mws_pages<U, kOp, long long>(stack, out, n_ops, n, vector, st);
+  }
+}
+
 template <typename U>
 cudaError_t launch_mws(const void* stack, void* out, long long n_ops,
                        long long n, int op, void* stream) {
-  if (n_ops < 0) return cudaErrorInvalidValue;
+  if (n_ops < 0 || n_ops > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
-  const auto* s = static_cast<const U*>(stack);
-  auto* o = static_cast<U*>(out);
+  const int pages = static_cast<int>(n_ops);
+  // 16-byte loads: stack and out aligned, and so every page after the first
+  const bool vector =
+      ((reinterpret_cast<uintptr_t>(stack) |
+        reinterpret_cast<uintptr_t>(out)) % 16) == 0 &&
+      (pages <= 1 || (n * static_cast<long long>(sizeof(U))) % 16 == 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case kAnd:
-      mws_kernel<U, kAnd><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
-      break;
-    case kOr:
-      mws_kernel<U, kOr><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
-      break;
-    case kXor:
-      mws_kernel<U, kXor><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
-      break;
+    case kAnd: launch_mws_op<U, kAnd>(stack, out, pages, n, vector, st); break;
+    case kOr: launch_mws_op<U, kOr>(stack, out, pages, n, vector, st); break;
+    case kXor: launch_mws_op<U, kXor>(stack, out, pages, n, vector, st); break;
     case kNand:
-      mws_kernel<U, kNand><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
+      launch_mws_op<U, kNand>(stack, out, pages, n, vector, st);
       break;
-    case kNor:
-      mws_kernel<U, kNor><<<grid_for(n), kThreads, 0, st>>>(s, o, n_ops, n);
-      break;
+    case kNor: launch_mws_op<U, kNor>(stack, out, pages, n, vector, st); break;
     default:
       return cudaErrorInvalidValue;
   }

@@ -8,13 +8,18 @@ in one array sense, with an inverted read for NAND/NOR.  The reduce is
 Replaces the Pallas kernel ``repro/kernels/mws.py`` ``_mws_kernel`` with
 the CUDA kernel ``mws_kernel`` of ``csrc/ndp.cu``.  The TPU kernel holds
 all n_ops pages of an (8, 128)-aligned tile in VMEM and reduces them in
-registers; here one flat grid-stride pass over the ``rows * cols``
-elements keeps each element's accumulator in a register while it reads
-element i of every operand page once, neighbouring threads on neighbouring
-addresses of one page.  There is no tile, so no row or column count needs
-padding.  Bound on an H100: bytes, (n_ops + 1) * itemsize per element
-against n_ops one-cycle logic ops (PERF.md).  int8 and int32 run on the
-unsigned view.
+registers; here a thread senses 16 bytes of the output, with a 16-byte
+load of each page at the same offset, and folds them in registers (the
+fold is bitwise, so int8 and int32 are the same words).  For 1 to 4 pages
+(the counts the aes and xor_filter senses use) every page's load is issued
+before the first fold, so a thread has all of them in flight; other counts
+go in groups of four loads, then their folds.  The grid covers the output
+in one pass where it can.  Indices are 32-bit where ``n_ops * rows *
+cols`` allows.  A stack or output not 16-byte aligned, or pages whose
+length is not a multiple of 16 bytes, go an element at a time, as does the
+ragged end.  There is no tile, so no row or column count needs padding.
+Bound on an H100: the bytes, (n_ops + 1) * itemsize an element, against
+n_ops - 1 one-instruction folds (PERF.md).
 
 ``LAUNCHES`` counts kernel launches.
 """

@@ -26,10 +26,11 @@ same rounded weights, so its output is a mean of v under weights within
 once (one bf16 ulp, 2**-8 relative, apart at most from that rounding).
 The largest |kernel - plain| measured on the card is in PERF.md.
 
-Two more functions rehearse the redesigned kernels' algorithms on the CPU
-(no dispatch path uses them): :func:`bitserial_mul_planes_plain`, the PuD
-multiplier on bit-planes, and :func:`flash_attention_tiled_plain`, the bf16
-attention kernel's tiled numerics.
+Three more functions rehearse the redesigned kernels' algorithms on the
+CPU (no dispatch path uses them): :func:`bitserial_add_prefix_plain`, the
+PuD adder as a log-depth prefix circuit; :func:`bitserial_mul_planes_plain`,
+the PuD multiplier on bit-planes; and :func:`flash_attention_tiled_plain`,
+the bf16 attention kernel's tiled numerics.
 """
 from __future__ import annotations
 
@@ -50,6 +51,45 @@ def _ripple_add(x: torch.Tensor, y: torch.Tensor, rounds: int) -> torch.Tensor:
 def bitserial_add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """SIMDRAM ripple-carry add over W = 8 * itemsize rounds."""
     return _ripple_add(a, b, a.element_size() * 8)
+
+
+def _lane_mask(width: int, d: int) -> int:
+    """What a word shifted left by ``d`` keeps so that no bit crosses into
+    the next ``width``-bit lane (``lane_mask`` of ``csrc/ndp.cu``), as an
+    int32 value: every bit for int32, bits d..7 of each byte for int8."""
+    if width == 32:
+        return -1
+    mask = ((0xFF << d) & 0xFF) * 0x01010101
+    return mask - (1 << 32) if mask >= 1 << 31 else mask
+
+
+def bitserial_add_prefix_plain(a: torch.Tensor,
+                               b: torch.Tensor) -> torch.Tensor:
+    """The Kogge-Stone prefix adder of ``csrc/ndp.cu`` in torch integer ops,
+    gate for gate, on int32 words: int32 elements are words; int8 elements
+    are packed four to a word (zero-padded at the end) and run as SWAR
+    lanes, every shifted term masked so that no carry crosses a byte.
+    p = a ^ b and g = a & b; for d = 1, 2, ..., W/2, g |= p & (g << d) and
+    (but at the last level) p &= p << d; the sum is (a ^ b) ^ (g << 1)."""
+    n, width = a.numel(), a.element_size() * 8
+
+    def words(x):
+        if width == 32:
+            return x.reshape(-1)
+        buf = torch.zeros(n + -n % 4, dtype=x.dtype, device=x.device)
+        buf[:n] = x.reshape(-1)
+        return buf.view(torch.int32)
+
+    x, y = words(a), words(b)
+    p, g = x ^ y, x & y
+    d = 1
+    while d < width:
+        g = g | (p & ((g << d) & _lane_mask(width, d)))
+        if 2 * d < width:
+            p = p & ((p << d) & _lane_mask(width, d))
+        d *= 2
+    s = (x ^ y) ^ ((g << 1) & _lane_mask(width, 1))
+    return s.view(a.dtype)[:n].reshape(a.shape)
 
 
 def bitserial_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -103,3 +103,27 @@ def test_serve_phase_rehearsed_on_the_cpu():
     assert chip_smoke.ops.flash_attention is ops.flash_attention
     assert chip_smoke.serve_plain(cfg, params, p, "cpu") == tokens
     assert all(len(t) == p["max_new"] for t in tokens)
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN12_GLOBAL__N_120bitserial_add_kernelIjLb1EEEvPKT_S3_PS1_x",
+     "bitserial_add_kernel<u32, 16-byte I/O>"),
+    ("_ZN12_GLOBAL__N_120bitserial_add_kernelIhLb0EEEvPKT_S3_PS1_x",
+     "bitserial_add_kernel<u8, unaligned>"),
+    ("_ZN12_GLOBAL__N_110mws_kernelIjLi2ELi3EjEEvPKT_PS1_iT2_i",
+     "mws_kernel<u32, xor, 3 pages, 32-bit index>"),
+    ("_ZN12_GLOBAL__N_110mws_kernelIhLi4ELi0ExEEvPKT_PS1_iT2_i",
+     "mws_kernel<u8, nor, any pages, 64-bit index>"),
+    ("_ZN12_GLOBAL__N_121flash_attn_mma_kernelILi64EEEvPK13__nv_bfloat16S3_"
+     "S3_PS1_xxxif", "flash_attn_mma_kernel<bf16, dh 64>"),
+    ("_ZN12_GLOBAL__N_113search_kernelEPKjS1_Phxi", "search_kernel"),
+])
+def test_sass_report_labels_each_template_instance(mangled, label):
+    assert chip_smoke.kernel_label(mangled) == label
+
+
+def test_prefix_add_ops_counts_the_int32_circuit():
+    """p and g, five generate levels and four propagate levels of a shift
+    and a LOP3 each, the sum's shift and XOR3: 22 (the ripple's 3W + 1 was
+    97)."""
+    assert chip_smoke.prefix_add_ops(32) == 22

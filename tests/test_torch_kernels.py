@@ -29,6 +29,10 @@ SEARCH_GRID = [(wpr, rows) for rows in (8, 24, 13) for wpr in (1, 2, 4)]
 MUL_RAGGED = [((3, 37), np.int32), ((3, 37), np.int8), ((5, 413), np.int8)]
 MUL_EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
                 np.int8: [-128, 127, -1, 0, 1, 3]}
+# the adder's edges: ragged n (not a multiple of a thread's 16 bytes, nor of
+# a block's chunk) and the jacobi1d replay length
+ADD_RAGGED = [((3, 37), np.int32), ((3, 37), np.int8), ((5, 413), np.int8),
+              ((1, 655358), np.int32)]
 # (M, K, N): the int8_matmul grid of tests/test_kernels.py, then shapes that
 # divide nothing
 MATMUL_GRID = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160)]
@@ -94,6 +98,28 @@ def test_bitserial_add_plain_equals_repro_oracle(shape, dtype):
         ref.bitserial_add_plain(_t(a), _t(b)).numpy(), want)
     np.testing.assert_array_equal(
         ref.ref_bitserial_add(_t(a), _t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("case", ADD_GRID + ADD_RAGGED
+                         + [("extremes", np.int32), ("extremes", np.int8)],
+                         ids=str)
+def test_bitserial_add_prefix_plain_equals_repro_oracle_and_pallas(case):
+    """The prefix adder's gate sequence (Kogge-Stone levels; int8 as SWAR
+    lanes of a word) against the JAX package's oracle and, where the Pallas
+    kernel's tiling takes the shape (not at 655358 columns), its
+    interpret-mode ripple adder."""
+    jnp, repro_ops, repro_ref = _reference()
+    shape, dtype = case
+    a, b = _extremes(dtype) if shape == "extremes" else _pair(shape, dtype)
+    want = np.asarray(repro_ref.ref_bitserial_add(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+    if a.shape[1] <= 512 or a.shape[1] % 512 == 0:
+        np.testing.assert_array_equal(
+            np.asarray(repro_ops.bitserial_add(jnp.asarray(a),
+                                               jnp.asarray(b))), want)
+    got = ref.bitserial_add_prefix_plain(_t(a), _t(b))
+    assert got.dtype == _t(a).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape,dtype", MUL_GRID)
@@ -416,6 +442,81 @@ def test_cuda_kernels_equal_their_plain_versions():
 
 
 @pytest.mark.cuda
+def test_cuda_add_and_mws_edges_equal_their_plain_versions():
+    """K2a and K1 on their ragged, unaligned and int8 paths: the adder on
+    ragged n, the dtypes' extremes and the jacobi1d sweep's slices (+4 and
+    +8 bytes); the sense at 1-6 pages and all five ops, on a ragged n, on a
+    stack one element past an allocation's start, and on one page whose n
+    leaves a tail after its 16-byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
+    ops.reset_launch_counts()
+    pairs = [tuple(_t(x).cuda() for x in (_extremes(dtype) if shape ==
+                                           "extremes" else _pair(shape, dtype)))
+             for shape, dtype in ADD_RAGGED + [("extremes", np.int32),
+                                               ("extremes", np.int8)]]
+    for dtype in INT_DTYPES:                     # the jacobi1d slicing
+        a = _t(_rand(np.random.default_rng(5), (655360,), dtype)).cuda()
+        x0, x1, x2 = (s.reshape(1, -1) for s in (a[:-2], a[1:-1], a[2:]))
+        assert x1.data_ptr() % 16 and x2.data_ptr() % 16
+        pairs += [(x0, x1), (x1, x2), (x2, x0)]
+    for a, b in pairs:
+        got = ops.bitserial_add(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.bitserial_add_plain(a, b)), (a.shape,
+                                                                 a.dtype)
+    stacks = []
+    for dtype in INT_DTYPES:
+        for n_ops in range(1, 7):
+            stacks += [_t(_rand(np.random.default_rng(n_ops), (n_ops,) + rc,
+                                dtype)).cuda() for rc in ((16, 256), (3, 37))]
+            flat = torch.empty(n_ops * 4096 + 1, dtype=stacks[-1].dtype,
+                               device="cuda")[1:]
+            flat.copy_(stacks[-2].reshape(-1))
+            stacks.append(flat.reshape(n_ops, 16, 256))
+        stacks.append(_t(_rand(np.random.default_rng(9), (1, 1, 4099),
+                               dtype)).cuda())
+    for stack in stacks:
+        for op in MWS_OPS:
+            got = ops.mws_bitwise(stack, op)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.mws_plain(stack, op)), (
+                stack.shape, stack.dtype, stack.data_ptr() % 16, op)
+    assert ops.launch_counts() == {
+        **{k: 0 for k in ops.launch_counts()},
+        "bitserial_add": len(pairs), "mws_bitwise": len(stacks) * 5}
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_a_misaligned_view():
+    """A contiguous q, k or v whose data pointer is not 16-byte aligned (a
+    view at an odd offset, which ``.contiguous()`` returns unchanged) is
+    copied before the launch and gives the plain version's answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/attention.cu: not found")
+    ops.reset_launch_counts()
+    for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 1e-2)):
+        q, k, v = (_t(x).to("cuda", dtype) for x in _qkv(2, 37, 37, 64,
+                                                          seed=4))
+        views = []
+        for t in (q, k, v):
+            flat = torch.empty(t.numel() + 3, dtype=dtype, device="cuda")
+            flat[3:].copy_(t.reshape(-1))
+            views.append(flat[3:].view(t.shape))
+        assert all(x.is_contiguous() and x.data_ptr() % 16 for x in views)
+        got = ops.flash_attention(*views, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_plain(q, k, v).float(),
+            atol=tol, rtol=tol)
+    assert ops.launch_counts()["flash_attention"] == 2
+
+
+@pytest.mark.cuda
 def test_cuda_int8_matmul_equals_its_plain_version():
     """K5 on the card: exact on the grid, on shapes that divide nothing,
     on a strided B, and where the int32 sum wraps."""
@@ -577,6 +678,21 @@ def test_flash_attention_plain_fp32_conditioning():
                       - exact).abs().max())
     assert error(LARGE_LOGITS[torch.float32]) < 3e-5 / 2
     assert error(LARGE_LOGITS[torch.bfloat16]) > 3e-5
+
+
+def test_aligned16_copies_only_a_misaligned_operand():
+    """The attention wrapper's copy of an operand not 16-byte aligned: a
+    ``flat[3:]`` bf16 view comes back in a fresh, aligned tensor with the
+    same values; an aligned tensor comes back as itself."""
+    flat = torch.arange(3 + 2 * 8 * 16, dtype=torch.float32).to(
+        torch.bfloat16)
+    view = flat[3:].view(2, 8, 16)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = attention.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, view)
+    aligned = torch.zeros(2, 8, 16, dtype=torch.bfloat16)
+    assert attention.aligned16(aligned) is aligned
 
 
 @pytest.mark.parametrize("h,sq,sk,dh", ATTN_CROSS)

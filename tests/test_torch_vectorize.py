@@ -34,6 +34,11 @@ KH = RNG.standard_normal((4, 64, 128)).astype(np.float32)
 PH = RNG.standard_normal((4, 64, 64)).astype(np.float32)     # heads, q, k
 LG = RNG.standard_normal((8, 8192)).astype(np.float32)       # 4 pages
 J_C, T_C = jnp.asarray(C), torch.from_numpy(C.copy())
+# two more captured constants, for a loop that closes over several
+D = RNG.integers(-64, 64, size=(20000,), dtype=np.int32)
+E = RNG.integers(-64, 64, size=(20000,), dtype=np.int32)
+J_D, T_D = jnp.asarray(D), torch.from_numpy(D.copy())
+J_E, T_E = jnp.asarray(E), torch.from_numpy(E.copy())
 
 
 def _jax_while(a, b):
@@ -46,6 +51,24 @@ def _jax_while(a, b):
 
 def _torch_while(a, b):
     return while_loop(lambda i, t: i < 3, lambda i, t: (i + 1, t ^ T_C),
+                      (torch.tensor(0), a[:20000]))
+
+
+def _jax_while_shared(a, b):
+    """cond closes over D; body over E, then D: D is a cond const and a
+    body const, first used in the body after E."""
+    def cond(c):
+        return c[0] < 3 + (c[1][0] ^ J_D[0]) * 0
+
+    def body(c):
+        i, t = c
+        return i + 1, (t ^ J_E) ^ J_D
+    return jax.lax.while_loop(cond, body, (0, a[:20000]))
+
+
+def _torch_while_shared(a, b):
+    return while_loop(lambda i, t: i < 3 + (t[0] ^ T_D[0]) * 0,
+                      lambda i, t: (i + 1, (t ^ T_E) ^ T_D),
                       (torch.tensor(0), a[:20000]))
 
 
@@ -84,6 +107,8 @@ PROGRAMS = {
     "cumsum": (lambda a, b: jnp.cumsum(a), lambda a, b: torch.cumsum(a, 0),
                (A, B)),
     "while_loop": (_jax_while, _torch_while, (A, B)),
+    "while_loop_shared_consts": (_jax_while_shared, _torch_while_shared,
+                                 (A, B)),
     # x[r] is slice + squeeze; [8, 8192] ^ [8192] promotes the rank first
     "select_broadcast": (lambda x: x ^ x[3], lambda x: x ^ x[3], (X,)),
     "where_scalars": (lambda a, b: jnp.where(a > b, 1, 0),
@@ -236,6 +261,18 @@ def test_unknown_op_takes_the_control_fallback():
     assert not any(i.vectorizable for i in got.instrs)
     assert {i.tag for i in got.instrs} == {"jit"}
     assert_same_trace(got, want)
+
+
+def test_while_operands_are_cond_consts_body_consts_carries():
+    """JAX's ``while`` reads its cond consts, its body consts (each in
+    first-use order), then its carries; a tensor that cond and body both
+    close over is read twice.  The port walks the HOP's sub-graphs for
+    that order."""
+    got, want = both("while_loop_shared_consts")
+    assert_same_trace(got, want)
+    srcs = got.instrs[0].srcs
+    # D's page, E's page, D's page again, then the carry's
+    assert len(srcs) == 4 and srcs[0] == srcs[2] != srcs[1]
 
 
 def test_budget_exceeded_raises():
