@@ -10,14 +10,16 @@ last line:
 2. build  — ``csrc/ndp.cu`` and ``csrc/attention.cu`` compiled for sm_90a
    from this checkout; ptxas registers and spills, and per kernel its SASS
    counts and loop bodies (the prefix adder's 16-byte loop, an element at
-   a time);
+   a time); every INT8 GEMM instance must run on the tensor cores (IMMA,
+   no IDP) without spilling;
 3. kernels — each CUDA kernel held exactly equal to its plain PyTorch
    version over the kernel-test grids and the shapes the replays give it
    (the bit-plane multiplier and the prefix adder also on a ragged n, the
    jacobi1d length and the dtypes' extreme values; the adder also on the
    jacobi1d sweep's unaligned slices; the MWS sense on 1-6 pages of every
-   op, ragged, unaligned and with a tail), flash attention within its
-   tolerance (also
+   op, ragged, unaligned and with a tail; the INT8 GEMM on a layout probe,
+   the replay shapes, a GEMV, a small K, unaligned pitches and views and
+   wrapping sums), flash attention within its tolerance (also
    with logits large enough to move the running max inside a tile), with
    CUDA-event times of the kernel, the plain version and the one PyTorch
    call that computes the same function, beside the card's least time for
@@ -83,7 +85,8 @@ from repro_torch.core.isa import Location, Resource, VectorInstr  # noqa: E402
 from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import _build, attention, ops, ref  # noqa: E402
+from repro_torch.kernels import (_build, attention,  # noqa: E402
+                                 int8_matmul, ops, ref)
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
 from repro_torch.models import model as M  # noqa: E402
@@ -118,6 +121,17 @@ SEARCH_WPR = 4                     # a 16-byte record in the search replay
 MATMUL_SHAPES = [(32, 64, 32), (16, 32, 48), (128, 128, 128), (64, 96, 160),
                  (13, 37, 29), (1, 1, 1)]
 MATMUL_EXTREMES = [(16, 4096, 24), (4, 1 << 17, 8)]
+# the tensor-core GEMM's cases (M, K, N, arg): the layout probe (one m16
+# tile of structured values, on the byte and the 16-byte load paths), the
+# llama2_infer replay shapes, a GEMV, a small K at a large M (the training
+# backward's x^T dY), pitches not 16-byte aligned, A or B a view one byte
+# past an allocation's start, and all -128 where the split sums wrap
+MATMUL_MMA = [(16, 32, 8, "probe"), (16, 32, 16, "probe"),
+              (48, 1024, 1024, None), (48, 1024, 2816, None),
+              (48, 2816, 1024, None), (48, 1024, 8192, None),
+              (1, 1024, 8192, None), (1024, 48, 1024, None),
+              (48, 1030, 8200, None), (48, 1024, 1024, "view_a"),
+              (48, 1024, 1024, "view_b"), (48, 1 << 17, 64, "min")]
 # flash-attention cases (heads, Sq, Sk, dh): the tests/test_kernels.py
 # grid, causal Sq != Sk, ragged lengths, each head dim, several q tiles
 ATTN_CASES = [(2, 64, 64, 32), (1, 128, 128, 64), (4, 32, 32, 16),
@@ -263,6 +277,9 @@ def kernel_label(name: str) -> str:
                     "32-bit index" if index == "u32" else "64-bit index"]
         elif ident == "bitserial_add_kernel" and len(args) == 2:
             args = [args[0], "16-byte I/O" if args[1] else "unaligned"]
+        elif ident == "int8_matmul_mma_kernel" and len(args) == 2:
+            args = [f"{16 * args[0]} rows",
+                    "16-byte loads" if args[1] else "byte loads"]
         elif ident == "flash_attn_mma_kernel":
             args = ["bf16", f"dh {args[0]}"]
         elif ident == "flash_attn_kernel":
@@ -271,32 +288,74 @@ def kernel_label(name: str) -> str:
     return name
 
 
-def sass_report(lib_path: str, nvcc: str) -> None:
+# the SASS opcodes sass_report counts: integer logic and shifts, the FMA
+# pipe's integer ops, bf16 tensor-core (HMMA) and int8 tensor-core (IMMA)
+# products, and __dp4a (IDP)
+COUNTED_OPCODES = ("LOP3", "IMAD", "SHF", "HMMA", "IMMA", "IDP")
+
+
+def sass_instructions(chunk: str) -> list:
+    """``(address, opcode, operands)`` of every instruction of one
+    function's ``cuobjdump -sass`` listing, predicates dropped."""
+    return [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+        r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)]
+
+
+def opcode_counts(instrs) -> dict:
+    """Static count of each of COUNTED_OPCODES (the opcode before its first
+    '.') in ``instrs``."""
+    ops_ = [op.split(".")[0] for _, op, _ in instrs]
+    return {op: ops_.count(op) for op in COUNTED_OPCODES}
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes per mangled kernel name from ``ptxas
+    -v``'s log: ``{name: {"registers", "stack", "spill_stores",
+    "spill_loads"}}``."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if (m := re.search(r"Function properties for (\S+)", line)):
+            name = m.group(1)
+            usage[name] = {}
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_report(lib_path: str, nvcc: str) -> dict:
     """Print, per kernel, what the compiler made of its loops: SASS
-    instruction count, LOP3/IMAD/SHF/HMMA counts (static: code the compiler
-    copies for a divergent warp counts again), the length of each loop
-    body (instructions from a backward branch's target to the branch), and
-    its registers, stack and static shared bytes (``cuobjdump
+    instruction count, the counts of COUNTED_OPCODES (static: code the
+    compiler copies for a divergent warp counts again), the length of each
+    loop body (instructions from a backward branch's target to the
+    branch), and its registers, stack and static shared bytes (``cuobjdump
     -res-usage``).  For the prefix adder, the body of its 16-byte loop
     (the loop that holds a 16-byte load) per element, and its opcodes.
-    Informational: a missing ``cuobjdump`` is reported, not fatal."""
+    Returns the opcode counts by kernel label ({} when ``cuobjdump`` is
+    missing, which is reported, not fatal)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"  sass: {tool} not found")
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     usage = dict(re.findall(
         r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
         subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
                        text=True, check=True, timeout=120).stdout))
+    counts = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split()[0]
         label = kernel_label(name)
-        instrs = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-            r"([A-Z][A-Z0-9_.]*)([^;]*);", chunk)]
+        instrs = sass_instructions(chunk)
         ops_ = [op.split(".")[0] for _, op, _ in instrs]
+        counts[label] = opcode_counts(instrs)
         loops = []                               # (first, last address)
         for addr, op, rest in instrs:
             target = re.match(r"\s*(0x[0-9a-f]+)", rest)
@@ -304,9 +363,9 @@ def sass_report(lib_path: str, nvcc: str) -> None:
                     int(target.group(1), 16) < addr:
                 loops.append((int(target.group(1), 16), addr))
         real = [o for o in ops_ if o != "NOP"]
-        print(f"  sass {label}: {len(real)} instructions, LOP3 "
-              f"{ops_.count('LOP3')}, IMAD {ops_.count('IMAD')}, SHF "
-              f"{ops_.count('SHF')}, HMMA {ops_.count('HMMA')}; loop bodies "
+        print(f"  sass {label}: {len(real)} instructions, "
+              + ", ".join(f"{op} {n}" for op, n in counts[label].items())
+              + f"; loop bodies "
               f"{sorted((b - a) // 16 + 1 for a, b in loops)}; "
               f"{usage.get(name, 'resource usage not found')}")
         if label.startswith("bitserial_add_kernel") and "16-byte" in label:
@@ -327,6 +386,7 @@ def sass_report(lib_path: str, nvcc: str) -> None:
                       f"element; opcodes {dict(sorted(hist.items()))}")
             if not found:
                 print("    16-byte loop body: no loop with a 16-byte load")
+    return counts
 
 
 def time_ms(fn, reps: int, clock_hz: float, rounds: int = 5) -> float:
@@ -724,7 +784,23 @@ def main() -> int:
                     "entry function" in line:
                 print("  ptxas:", line.strip())
         _build.library(stem)
-        sass_report(info["path"], _build.find_nvcc())
+        counts = sass_report(info["path"], _build.find_nvcc())
+        # the INT8 GEMM: tensor cores only, and no spills
+        for name, use in ptxas_usage(info["log"]).items():
+            label = kernel_label(name)
+            if not label.startswith("int8_matmul"):
+                continue
+            got = counts.get(label, {})
+            print(f"  K5 {label}: {use.get('registers')} registers, "
+                  f"{use.get('spill_stores')} B spill stores, "
+                  f"{use.get('spill_loads')} B spill loads, stack "
+                  f"{use.get('stack')} B; IMMA {got.get('IMMA')}, IDP "
+                  f"{got.get('IDP')}")
+            if use.get("spill_stores") or use.get("spill_loads"):
+                raise AssertionError(f"{label} spills: {use}")
+            if counts and (not got.get("IMMA") or got.get("IDP")):
+                raise AssertionError(f"{label} is not on the tensor cores: "
+                                     f"{got}")
     print("  flash_attn_mma_kernel dynamic shared memory a block: "
           + ", ".join(f"dh {dh} {attention.mma_smem_bytes(dh)} B"
                       for dh in attention.HEAD_DIMS))
@@ -756,6 +832,15 @@ def main() -> int:
               for shape in MATMUL_SHAPES]
     cases += [("int8_matmul", np.int8, shape, "min")
               for shape in MATMUL_EXTREMES]
+    cases += [("int8_matmul", np.int8, (m, k, n), arg)
+              for m, k, n, arg in MATMUL_MMA]
+
+    def unaligned(t):
+        """``t``'s values in a contiguous view one element past an
+        allocation's start."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        flat.copy_(t.reshape(-1))
+        return flat.reshape(t.shape)
 
     def operands(name, dt, shape, arg):
         """The operands of one call: (a, b) for the elementwise kernels
@@ -764,7 +849,10 @@ def main() -> int:
         buffer, as the jacobi1d sweep slices it, b not 16-byte aligned for k
         = 1, 2), the stack for MWS, (stack, query) with the query
         planted as record 0 of row 3 for search, int8 (a[M, K], b[K, N])
-        for the GEMM (all -128 for ``arg == "min"``)."""
+        for the GEMM (all -128 for ``arg == "min"``; for ``"probe"``
+        A[i, k] = i + 16 (k % 4) and B[k, j] = k // 4 - j, which tell every
+        fragment index apart; for ``"view_a"`` / ``"view_b"`` that operand
+        a contiguous view one byte past an allocation's start)."""
         if name == "int8_matmul":
             m, k, n = shape
             if arg == "min":
@@ -772,7 +860,17 @@ def main() -> int:
                                    device="cuda"),
                         torch.full((k, n), -128, dtype=torch.int8,
                                    device="cuda"))
-            return rand(rng, (m, k), np.int8), rand(rng, (k, n), np.int8)
+            if arg == "probe":
+                i, kk = torch.arange(m)[:, None], torch.arange(k)[None, :]
+                kr, j = torch.arange(k)[:, None], torch.arange(n)[None, :]
+                return ((i + 16 * (kk % 4)).to(torch.int8).cuda(),
+                        (kr // 4 - j).to(torch.int8).cuda())
+            a, b = rand(rng, (m, k), np.int8), rand(rng, (k, n), np.int8)
+            if arg == "view_a":
+                a = unaligned(a)
+            elif arg == "view_b":
+                b = unaligned(b)
+            return a, b
         if name == "mws_bitwise":
             return (rand(rng, shape, dt),)
         if name == "search_pages":
@@ -814,11 +912,21 @@ def main() -> int:
         want = plain_fn[name](*xs, arg)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
+            where = ""
+            if name == "int8_matmul":
+                r, c = (got != want).nonzero()[0].tolist()
+                where = (f"; first wrong ({r}, {c}): got {int(got[r, c])}, "
+                         f"want {int(want[r, c])}; plan "
+                         f"{int8_matmul.plan(shape[0], shape[2], shape[1])}")
             raise AssertionError(f"{name} {np.dtype(dt).name} {shape} "
-                                 f"arg={arg}: kernel != plain version")
+                                 f"arg={arg}: kernel != plain version{where}")
         if name == "search_pages" and not bool(got[3, 0]):
             raise AssertionError(f"search_pages {shape} wpr={arg}: the "
                                  f"planted record was not found")
+        if name == "int8_matmul" and arg in ("view_a", "view_b"):
+            if not any(x.data_ptr() % 16 for x in xs):
+                raise AssertionError(f"int8_matmul {arg}: the view is "
+                                     f"16-byte aligned")
         if name == "int8_matmul" and arg == "min":
             k = shape[1]
             wrapped = (k * 2 ** 14 + 2 ** 31) % 2 ** 32 - 2 ** 31
@@ -831,11 +939,6 @@ def main() -> int:
     # extremes, the jacobi1d slices (+1 and +2 elements), int8; 1-6 pages
     # of every op on whole and ragged pages, on a stack one element past an
     # allocation's start, and on one page whose n leaves a tail
-    def unaligned(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
-        flat.copy_(t.reshape(-1))
-        return flat.reshape(t.shape)
-
     n = jacobi1d.SCALES["paper"]["n"] - 2
     edges = []                                  # (kernel, operands, arg)
     for dt in (np.int32, np.int8):
@@ -992,7 +1095,18 @@ def main() -> int:
                 f"{gate_ops[name] * xs[0].numel() / int32_ops_per_s * 1e3:.6f}"
                 if name in gate_ops else "")
         if name == "int8_matmul":
-            gate = f"; cold operands {cold_ms:.6f}"
+            # the launcher's cut of K (S ranges) and its tile; the same
+            # call unsplit beside it
+            cut = int8_matmul.plan(m_, n_, k_)
+            unsplit_ms = (time_ms(lambda: int8_matmul.int8_matmul(
+                *xs, splits=1), 50, clock_hz) if cut["splits"] > 1 else ms)
+            zeroed = torch.empty((m_, n_), dtype=torch.int32, device="cuda")
+            zero_ms = time_ms(zeroed.zero_, 50, clock_hz)
+            gate = (f"; cold operands {cold_ms:.6f}; S {cut['splits']}, "
+                    f"tile {cut['tile_m']}x{cut['tile_n']}, "
+                    f"{cut['stage_k']} B of K a stage; at S 1 "
+                    f"{unsplit_ms:.6f}; zeroing the output alone "
+                    f"{zero_ms:.6f}")
         print(f"{name:14s} {label:10s} {str(shape):18s} arg={arg} "
               f"kernel {ms:.6f} ms  plain {plain_ms:.6f} ms  library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms  "

@@ -29,8 +29,9 @@ _P = ctypes.c_void_p
 _N = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # source stem -> {C entry point -> argtypes}; every entry point returns an
-# int: a cudaError_t, or for *_smem_bytes a byte count
+# int: a cudaError_t, for *_smem_bytes a byte count, for *_plan 0
 SIGNATURES = {
     "ndp": {
         "ndp_bitserial_add_i8": (_P, _P, _P, _N, _P),
@@ -41,7 +42,8 @@ SIGNATURES = {
         "ndp_mws_i8": (_P, _P, _N, _N, _I, _P),
         "ndp_mws_i32": (_P, _P, _N, _N, _I, _P),
         "ndp_search_i32": (_P, _P, _P, _N, _I, _P),
-        "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _P),
+        "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _I, _P),
+        "ndp_int8_matmul_plan": (_N, _N, _N, _I, _IP),
     },
     # q, k, v, out, heads, sq, sk, dh, causal, scale * log2(e), stream
     "attention": {

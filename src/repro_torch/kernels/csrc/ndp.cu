@@ -533,95 +533,301 @@ __global__ void search_kernel(const uint32_t* __restrict__ stack,
   }
 }
 
-// INT8 GEMM, int8[M,K] @ int8[K,N] -> int32[M,N], row-major, any M, N, K.
+// INT8 GEMM, int8[M,K] @ int8[K,N] -> int32[M,N], row-major, any M, N, K,
+// on the tensor cores (mma.sync m16n8k32 .s8.s8.s32).
 //
-// The TPU kernel keeps one (128, 128) int32 output block resident in VMEM
-// while the sequential K grid axis accumulates into it.  Here one block of
-// 256 threads owns a kMmBM x kMmBN output tile in registers and walks K
-// itself, staging kMmBK bytes of K of A and B in shared memory per step:
-//   * A's tile is stored as it lies: 4 consecutive k of one row per word;
-//   * B's tile is stored transposed, 4 consecutive k of one column per
-//     word, so that __dp4a multiplies four int8 pairs and adds them to an
-//     int32 accumulator in one instruction;
-//   * every byte is loaded on its own, masked to 0 outside M, N or K, so
-//     no shape needs padding and no row needs alignment.
-// Thread (ty, tx) computes row ty and columns tx + 16 j (j < 4) of the
-// tile; a warp reads 16 distinct B rows of the padded (stride 33 words)
-// shared tile, conflict-free, and two A words, each broadcast.  The int32
-// sums wrap as int32 arithmetic does, as the TPU kernel's do.
+// Replaces repro/kernels/int8_matmul.py _matmul_kernel, which keeps one
+// (128, 128) int32 output block resident in VMEM while the sequential K
+// grid axis accumulates into it.
 //
-// At the LLM shapes (M = 48 tokens, K and N 1024..8192) the function is
-// bound by the bytes of B (the weights) read once; this simple form is
-// instead bound by its serial stage loop (load, sync, compute) and by
-// byte-wide loads: tensor cores (mma.sync s8, then wgmma with TMA) are
-// the way to the bound, in a later change.
-constexpr int kMmBM = 16;
-constexpr int kMmBN = 64;
-constexpr int kMmBK = 128;                  // bytes of K per stage
-constexpr int kMmWords = kMmBK / 4;         // packed words of K per stage
-constexpr int kMmThreads = 256;
+// Bound on an H100 at the LLM shapes (M = 48 tokens, K and N 1024..8192):
+// the bytes of B, the weights, read once (8 MiB at the logits shape, 2.5 us
+// at 3.35 TB/s); the 2MNK operations take 0.4 us at the int8 tensor-core
+// peak, so the function is bound by its bytes.
+//
+// Design.
+//   * Tensor cores.  A block of 4 warps owns a (16 * MT) x 64 int32 tile
+//     (MT m16 tiles, 1..4 from M: 3 at M = 48); each warp owns all its rows
+//     and 16 columns, MT x 2 m16n8k32 products a 32-byte step of K.  No
+//     .satfinite: the int32 sums wrap, as the TPU kernel's and the plain
+//     version's do.
+//   * B transposed in registers.  An s8 B fragment word holds 4 consecutive
+//     k of one column; B lies [K, N], N contiguous, and ldmatrix .trans
+//     moves 16-bit elements only.  So a thread loads 16 columns of 4
+//     consecutive k rows (4 x 16 bytes), turns them into 16 words of "4 k
+//     of one n" by 4x4 byte transposes (PRMT), and stores them to a
+//     Bt[n][k / 4] tile whose rows are padded to 36 words and whose word
+//     index is XOR-swizzled by the 16-column chunk, so that both these
+//     stores and the fragment loads (single 32-bit LDS) are free of bank
+//     conflicts.  A lies [M, K], K contiguous, and goes in as it lies, rows
+//     padded the same way.  B is never transposed in device memory.
+//   * 16-byte loads wherever a, b, K and N allow (pointers 16-byte aligned,
+//     K and N multiples of 16: then every 16-byte chunk lies wholly inside
+//     or outside the matrix); else the same tiles are filled a byte at a
+//     time.  The ragged edges of M, N and K read as 0.
+//   * Split-K.  At M = 48 there are only N / 64 output tiles, 16 at N =
+//     1024; K's 128-byte stages are split into S ranges (gridDim.z) so that
+//     tiles x S fills the card's SMs in one wave, each range at least two
+//     stages, where that shortens each block's walk enough to pay for the
+//     memset and the atomics (S = 4 at [48, 1024] x [1024, 1024], 8 at K =
+//     2816, 1 at N = 2816 and 8192).  With S > 1 the launcher zeroes `out`
+//     (cudaMemsetAsync, on the same stream, part of the call's cost) and
+//     each range adds its partial tile with atomicAdd (RED.ADD.S32).  int32 addition modulo 2^32 is associative
+//     and commutative, so the result is bit-exact whatever order the
+//     partials land in, wrap included.  With S = 1 the tile is stored.
+//   * Overlap.  Two stages' 16-byte chunks are in flight in registers
+//     while the current stage's products run from one shared buffer; the
+//     next stage is then transposed into the other: one __syncthreads a
+//     stage.
+//
+// What holds it back (PERF.md): with one block on an SM, a stage
+// costs ~0.5 us of work inside the SM (transposes into shared memory,
+// fragment loads, 24 products a warp, the barrier), which neither more
+// stages in flight nor more warps shortened; and the memset is a launch
+// of its own.
+// Left for later: warp-specialised loading into a ring of shared stages
+// (cp.async or TMA) beside the products, larger warp tiles or wgmma to
+// cut the fragment traffic, persistent blocks, and a split-K reduction
+// through a cluster's shared memory in place of the memset and atomics.
+constexpr int kMmThreads = 128;             // 4 warps
+constexpr int kMmBN = 64;                   // columns a block, 16 a warp
+constexpr int kMmBK = 128;                  // bytes of K a stage
+constexpr int kMmWords = kMmBK / 4;         // words of 4 k a row and stage
+constexpr int kMmPitch = kMmWords + 4;      // 36 words: row r starts at bank
+                                            // 4r, so 8 rows x 4 words of a
+                                            // fragment load hit 32 banks
+constexpr int kMmMinStages = 2;             // stages a split at least
+// K is split only where that takes at least this many stages off each
+// block's walk: the memset and the atomics cost about as much (PERF.md:
+// ~0.5 us a stage, ~2 us the memset on an H100)
+constexpr int kMmSplitGain = 6;
 
-__global__ void __launch_bounds__(kMmThreads)
-int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                   int32_t* __restrict__ out, long long m, long long n,
-                   long long k) {
-  __shared__ uint32_t as[kMmBM][kMmWords + 1];
-  __shared__ uint32_t bs[kMmBN][kMmWords + 1];
-  const int t = threadIdx.x;
-  const int ty = t / 16;
-  const int tx = t % 16;
-  const long long row0 = static_cast<long long>(blockIdx.y) * kMmBM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kMmBN;
-  // loaders: two words of one A row, eight words of one B column
-  const int a_row = t / 16;
-  const int a_word = (t % 16) * 2;
-  const int b_col = t % kMmBN;
-  const int b_word = (t / kMmBN) * 8;
-  int acc[4] = {0, 0, 0, 0};
-  for (long long k0 = 0; k0 < k; k0 += kMmBK) {
-    const long long r = row0 + a_row;
+// one mma.sync.m16n8k32 .s8.s8.s32, c += a * b, int32 wrapping
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The swizzle of Bt's word index: XOR by the row's 16-column chunk (bits 3
+// and 4 of the word index), so that the 4 chunks a warp stores land in 4
+// different 8-bank groups.
+__device__ __forceinline__ int bt_swizzle(int col) { return (col / 16) << 3; }
+
+// The m16n8k32 .s8 fragments of 32-byte step `s` of a stage (PTX ISA,
+// "Matrix Fragments for mma.m16n8k32"; g = lane / 4, t = lane % 4):
+//   A: a0 row g, k 4t..4t+3; a1 row g + 8; a2, a3 the same rows at k + 16;
+//   B: b0 column g, k 4t..4t+3; b1 the same column at k + 16;
+//   C: c0, c1 row g, columns 2t and 2t + 1; c2, c3 row g + 8.
+// A word of `as` (rows of the A tile) or `bt` (columns of the B tile) holds
+// 4 consecutive k, so each fragment register is one 32-bit shared load.
+__device__ __forceinline__ void load_a_frag(const uint32_t* as, int row0,
+                                            int s, int lane,
+                                            uint32_t (&a)[4]) {
+  const uint32_t* p = as + (row0 + lane / 4) * kMmPitch + 8 * s + lane % 4;
+  a[0] = p[0];
+  a[1] = p[8 * kMmPitch];
+  a[2] = p[4];
+  a[3] = p[8 * kMmPitch + 4];
+}
+
+__device__ __forceinline__ void load_b_frag(const uint32_t* bt, int col0,
+                                            int s, int lane,
+                                            uint32_t (&b)[2]) {
+  const int col = col0 + lane / 4;
+  const uint32_t* p = bt + col * kMmPitch;
+  b[0] = p[(8 * s + lane % 4) ^ bt_swizzle(col)];
+  b[1] = p[(8 * s + 4 + lane % 4) ^ bt_swizzle(col)];
+}
+
+// x[i]: 4 bytes (columns j = 0..3) of k row i; y[j]: the 4 k (bytes 0..3)
+// of column j
+__device__ __forceinline__ void transpose4x4(const uint32_t (&x)[4],
+                                             uint32_t (&y)[4]) {
+  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140);
+  const uint32_t t1 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140);
+  const uint32_t t3 = __byte_perm(x[2], x[3], 0x7362);
+  y[0] = __byte_perm(t0, t2, 0x5410);
+  y[1] = __byte_perm(t0, t2, 0x7632);
+  y[2] = __byte_perm(t1, t3, 0x5410);
+  y[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// 16 bytes at p[0..15], those at or past `valid` (ragged edge) as 0
+template <bool kVec>
+__device__ __forceinline__ uint4 load16(const int8_t* __restrict__ p,
+                                        long long valid) {
+  if (kVec) {
+    return valid > 0 ? *reinterpret_cast<const uint4*>(p)
+                     : make_uint4(0, 0, 0, 0);
+  }
+  uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long kk = k0 + (a_word + w) * 4 + i;
-        const uint32_t v =
-            (r < m && kk < k) ? static_cast<uint8_t>(a[r * k + kk]) : 0u;
-        word |= v << (8 * i);
-      }
-      as[a_row][a_word + w] = word;
+  for (int e = 0; e < 16; ++e) {
+    if (e < valid) {
+      w[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(p[e]))
+                  << (8 * (e % 4));
     }
-    const long long c = col0 + b_col;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One stage of A and B in registers.  Thread t loads A chunk t % 8 (16
+// bytes of K) of rows t / 8 + 16 i, and B columns 16 (t % 4)..+15 of k rows
+// 4 (t / 4)..+3: neighbouring lanes on neighbouring 16 bytes of one row.
+template <int MT, bool kVec>
+struct MmStage {
+  uint4 ra[MT];
+  uint4 rb[4];
+
+  __device__ __forceinline__ void load(const int8_t* __restrict__ a,
+                                       const int8_t* __restrict__ b,
+                                       long long m, long long n, long long k,
+                                       long long row0, long long col0,
+                                       long long k0, int tid) {
+    const long long ka = k0 + 16 * (tid % 8);
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long kk = k0 + (b_word + w) * 4 + i;
-        const uint32_t v =
-            (c < n && kk < k) ? static_cast<uint8_t>(b[kk * n + c]) : 0u;
-        word |= v << (8 * i);
-      }
-      bs[b_col][b_word + w] = word;
+    for (int i = 0; i < MT; ++i) {
+      const long long r = row0 + tid / 8 + 16 * i;
+      ra[i] = load16<kVec>(a + r * k + ka, r < m ? k - ka : 0);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int w = 0; w < kMmWords; ++w) {
-      const int av = static_cast<int>(as[ty][w]);
+    const long long c = col0 + 16 * (tid % 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long kk = k0 + 4 * (tid / 4) + i;
+      rb[i] = load16<kVec>(b + kk * n + c, kk < k ? n - c : 0);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint32_t* as, uint32_t* bt,
+                                        int tid) const {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      *reinterpret_cast<uint4*>(
+          as + (tid / 8 + 16 * i) * kMmPitch + 4 * (tid % 8)) = ra[i];
+    }
+    const int chunk = 16 * (tid % 4);
+    const int word = (tid / 4) ^ bt_swizzle(chunk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t x[4] = {word_of(rb[0], q), word_of(rb[1], q),
+                             word_of(rb[2], q), word_of(rb[3], q)};
+      uint32_t y[4];
+      transpose4x4(x, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        acc[j] = __dp4a(av, static_cast<int>(bs[tx + 16 * j][w]), acc[j]);
+        bt[(chunk + 4 * q + j) * kMmPitch + word] = y[j];
       }
     }
-    __syncthreads();
   }
-  const long long r = row0 + ty;
-  if (r >= m) return;
+};
+
+// The products of one stage: MT x 2 m16n8k32 tiles a 32-byte step of K,
+// the warp's 16 columns against all the block's rows.
+template <int MT>
+__device__ __forceinline__ void mma_stage(const uint32_t* as,
+                                          const uint32_t* bt, int warp,
+                                          int lane, int (&acc)[MT][2][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long c = col0 + tx + 16 * j;
-    if (c < n) out[r * n + c] = acc[j];
+  for (int step = 0; step < kMmBK / 32; ++step) {
+    uint32_t bf[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      load_b_frag(bt, 16 * warp + 8 * j, step, lane, bf[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t af[4];
+      load_a_frag(as, 16 * i, step, lane, af);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma_s8(acc[i][j], af, bf[j]);
+    }
+  }
+}
+
+template <int MT, bool kVec>
+__global__ void __launch_bounds__(kMmThreads)
+    int8_matmul_mma_kernel(const int8_t* __restrict__ a,
+                           const int8_t* __restrict__ b,
+                           int32_t* __restrict__ out, long long m,
+                           long long n, long long k, long long per_split,
+                           int accumulate) {
+  __shared__ __align__(16) uint32_t as[2][16 * MT * kMmPitch];
+  __shared__ __align__(16) uint32_t bt[2][kMmBN * kMmPitch];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const long long row0 = static_cast<long long>(blockIdx.y) * 16 * MT;
+  const long long col0 = static_cast<long long>(blockIdx.x) * kMmBN;
+  const long long stages = (k + kMmBK - 1) / kMmBK;
+  const long long s0 = static_cast<long long>(blockIdx.z) * per_split;
+  const long long count =
+      (s0 + per_split < stages ? s0 + per_split : stages) - s0;
+  int acc[MT][2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    }
+  }
+  // Two stages in flight.  Step j first moves stage j + 1 (loaded a step
+  // ago) from its registers into the other shared buffer, then loads stage
+  // j + 2 into the registers that held stage j, then multiplies stage j:
+  // nothing after the loads waits for them within the step, so the
+  // products run while they are in flight.  The loop runs two steps a turn
+  // so that the register sets stay named.
+  MmStage<MT, kVec> even, odd;
+  auto load = [&](MmStage<MT, kVec>& r, long long j) {
+    r.load(a, b, m, n, k, row0, col0, (s0 + j) * kMmBK, tid);
+  };
+  auto step = [&](long long j, MmStage<MT, kVec>& mine,
+                  MmStage<MT, kVec>& other, int buf) {
+    if (j + 1 < count) other.store(as[buf ^ 1], bt[buf ^ 1], tid);
+    if (j + 2 < count) load(mine, j + 2);
+    mma_stage<MT>(as[buf], bt[buf], warp, lane, acc);
+    __syncthreads();
+  };
+  if (count > 0) load(even, 0);
+  if (count > 1) load(odd, 1);
+  if (count > 0) even.store(as[0], bt[0], tid);
+  __syncthreads();
+  for (long long j = 0; j < count; j += 2) {
+    step(j, even, odd, 0);
+    if (j + 1 < count) step(j + 1, odd, even, 1);
+  }
+  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const long long col = col0 + 16 * warp + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = row0 + 16 * i + lane / 4 + 8 * h;
+        if (r >= m || col >= n) continue;
+        int32_t* o = out + r * n + col;
+        const int v0 = acc[i][j][2 * h];
+        const int v1 = acc[i][j][2 * h + 1];
+        if (accumulate) {
+          atomicAdd(o, v0);
+          if (col + 1 < n) atomicAdd(o + 1, v1);
+        } else if (n % 2 == 0) {
+          *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (col + 1 < n) o[1] = v1;
+        }
+      }
+    }
   }
 }
 
@@ -760,22 +966,101 @@ cudaError_t launch_search(const void* stack, const void* query, void* out,
   return cudaGetLastError();
 }
 
+// The card's SM count, read once per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = sms > 0 ? sms : 132;
+  }
+  return counts[dev];
+}
+
+// How a call is cut: m16 tiles a block (MT), output tiles, K's stages and
+// their split into ranges of `per` stages (splits = 0: the launcher's
+// choice, below).
+struct MmPlan {
+  int mt;
+  long long row_tiles, col_tiles, stages, per, splits;
+};
+
+MmPlan plan_int8_matmul(long long m, long long n, long long k, int splits) {
+  MmPlan p;
+  p.mt = m >= 64 ? 4 : static_cast<int>((m + 15) / 16);
+  if (p.mt < 1) p.mt = 1;
+  p.row_tiles = (m + 16 * p.mt - 1) / (16 * p.mt);
+  p.col_tiles = (n + kMmBN - 1) / kMmBN;
+  p.stages = (k + kMmBK - 1) / kMmBK;
+  long long want = splits;
+  if (want <= 0) {
+    // as many ranges as keep all tiles in one wave, each at least
+    // kMmMinStages stages, if that saves kMmSplitGain stages a block
+    const long long tiles = p.row_tiles * p.col_tiles;
+    want = sm_count() / (tiles > 0 ? tiles : 1);
+    const long long most = p.stages / kMmMinStages;
+    if (want > most) want = most;
+    if (want > 1 &&
+        p.stages - (p.stages + want - 1) / want < kMmSplitGain) {
+      want = 1;
+    }
+  }
+  if (want > p.stages) want = p.stages;
+  if (want < 1) want = 1;
+  p.per = (p.stages + want - 1) / want;
+  p.splits = p.per > 0 ? (p.stages + p.per - 1) / p.per : 1;
+  return p;
+}
+
+template <int MT>
+void launch_mma(const void* a, const void* b, void* out, long long m,
+                long long n, long long k, const MmPlan& p, bool vec,
+                cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned int>(p.col_tiles),
+                  static_cast<unsigned int>(p.row_tiles),
+                  static_cast<unsigned int>(p.splits));
+  const auto* x = static_cast<const int8_t*>(a);
+  const auto* y = static_cast<const int8_t*>(b);
+  auto* o = static_cast<int32_t*>(out);
+  const int accumulate = p.splits > 1;
+  if (vec) {
+    int8_matmul_mma_kernel<MT, true><<<grid, kMmThreads, 0, st>>>(
+        x, y, o, m, n, k, p.per, accumulate);
+  } else {
+    int8_matmul_mma_kernel<MT, false><<<grid, kMmThreads, 0, st>>>(
+        x, y, o, m, n, k, p.per, accumulate);
+  }
+}
+
 cudaError_t launch_int8_matmul(const void* a, const void* b, void* out,
                                long long m, long long n, long long k,
-                               void* stream) {
+                               int splits, void* stream) {
   if (m < 0 || n < 0 || k < 0) return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
-  const long long row_tiles = (m + kMmBM - 1) / kMmBM;
-  const long long col_tiles = (n + kMmBN - 1) / kMmBN;
-  if (row_tiles > 65535 || col_tiles > 0x7fffffffLL) {
+  const MmPlan p = plan_int8_matmul(m, n, k, splits);
+  if (p.row_tiles > 65535 || p.col_tiles > 0x7fffffffLL ||
+      p.splits > 65535) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(static_cast<unsigned int>(col_tiles),
-                  static_cast<unsigned int>(row_tiles));
-  int8_matmul_kernel<<<grid, kMmThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<int32_t*>(out), m, n, k);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(m) * static_cast<size_t>(n) * 4, st);
+    if (err != cudaSuccess) return err;
+  }
+  // 16-byte loads: both pointers aligned (a view may start anywhere) and
+  // every row pitch a multiple of 16 bytes
+  const bool vec = ((reinterpret_cast<uintptr_t>(a) |
+                     reinterpret_cast<uintptr_t>(b)) % 16) == 0 &&
+                   k % 16 == 0 && n % 16 == 0;
+  switch (p.mt) {
+    case 1: launch_mma<1>(a, b, out, m, n, k, p, vec, st); break;
+    case 2: launch_mma<2>(a, b, out, m, n, k, p, vec, st); break;
+    case 3: launch_mma<3>(a, b, out, m, n, k, p, vec, st); break;
+    default: launch_mma<4>(a, b, out, m, n, k, p, vec, st); break;
+  }
   return cudaGetLastError();
 }
 
@@ -783,9 +1068,23 @@ cudaError_t launch_int8_matmul(const void* a, const void* b, void* out,
 
 extern "C" {
 
+// splits: K ranges, 0 for the launcher's choice
 int ndp_int8_matmul(const void* a, const void* b, void* out, long long m,
-                    long long n, long long k, void* stream) {
-  return static_cast<int>(launch_int8_matmul(a, b, out, m, n, k, stream));
+                    long long n, long long k, int splits, void* stream) {
+  return static_cast<int>(
+      launch_int8_matmul(a, b, out, m, n, k, splits, stream));
+}
+
+// The plan of a call: plan[0] K ranges, plan[1] x plan[2] the output tile,
+// plan[3] bytes of K a stage.  Returns 0.
+int ndp_int8_matmul_plan(long long m, long long n, long long k, int splits,
+                         int* plan) {
+  const MmPlan p = plan_int8_matmul(m, n, k, splits);
+  plan[0] = static_cast<int>(p.splits);
+  plan[1] = 16 * p.mt;
+  plan[2] = kMmBN;
+  plan[3] = kMmBK;
+  return 0;
 }
 
 int ndp_mws_i8(const void* stack, void* out, long long n_ops, long long n,

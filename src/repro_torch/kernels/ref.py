@@ -26,11 +26,12 @@ same rounded weights, so its output is a mean of v under weights within
 once (one bf16 ulp, 2**-8 relative, apart at most from that rounding).
 The largest |kernel - plain| measured on the card is in PERF.md.
 
-Three more functions rehearse the redesigned kernels' algorithms on the
+Four more functions rehearse the redesigned kernels' algorithms on the
 CPU (no dispatch path uses them): :func:`bitserial_add_prefix_plain`, the
 PuD adder as a log-depth prefix circuit; :func:`bitserial_mul_planes_plain`,
-the PuD multiplier on bit-planes; and :func:`flash_attention_tiled_plain`,
-the bf16 attention kernel's tiled numerics.
+the PuD multiplier on bit-planes; :func:`int8_matmul_splitk_plain`, the
+INT8 GEMM's split-K sum; and :func:`flash_attention_tiled_plain`, the bf16
+attention kernel's tiled numerics.
 """
 from __future__ import annotations
 
@@ -238,6 +239,33 @@ def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         part = a[:, k0:k0 + _EXACT_K].double() @ b[k0:k0 + _EXACT_K].double()
         acc += part.to(torch.int64)
     return acc.to(torch.int32)
+
+
+# bytes of K a stage of the INT8 GEMM kernel (kMmBK of csrc/ndp.cu)
+INT8_MM_STAGE_K = 128
+
+
+def int8_matmul_splitk_plain(a: torch.Tensor, b: torch.Tensor, splits: int,
+                             seed: int = 0) -> torch.Tensor:
+    """The INT8 GEMM kernel's split-K sum: K's 128-byte stages cut into
+    ``splits`` ranges of ceil(stages / splits) stages as its launcher cuts
+    them (the last range ragged, empty ranges dropped), each range's
+    product wrapped to int32, and the partial products added in int32,
+    wrapping, in an order shuffled by ``seed`` (the kernel's atomics land
+    in any order)."""
+    k = a.shape[1]
+    stages = -(-k // INT8_MM_STAGE_K)
+    per = -(-stages // max(1, min(splits, stages))) if stages else 1
+    bounds = [(k0, min(k, k0 + per * INT8_MM_STAGE_K))
+              for k0 in range(0, k, per * INT8_MM_STAGE_K)]
+    order = torch.randperm(len(bounds),
+                           generator=torch.Generator().manual_seed(seed))
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
+                      device=a.device)
+    for i in order.tolist():
+        k0, k1 = bounds[i]
+        out += int8_matmul_plain(a[:, k0:k1], b[k0:k1])
+    return out
 
 
 def ref_int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -117,9 +117,53 @@ def test_serve_phase_rehearsed_on_the_cpu():
     ("_ZN12_GLOBAL__N_121flash_attn_mma_kernelILi64EEEvPK13__nv_bfloat16S3_"
      "S3_PS1_xxxif", "flash_attn_mma_kernel<bf16, dh 64>"),
     ("_ZN12_GLOBAL__N_113search_kernelEPKjS1_Phxi", "search_kernel"),
+    ("_ZN38_GLOBAL__N__b0ad16ce_6_ndp_cu_719fb58a22int8_matmul_mma_kernel"
+     "ILi3ELb1EEEvPKaS2_Pixxxxi",
+     "int8_matmul_mma_kernel<48 rows, 16-byte loads>"),
+    ("_ZN38_GLOBAL__N__b0ad16ce_6_ndp_cu_719fb58a22int8_matmul_mma_kernel"
+     "ILi1ELb0EEEvPKaS2_Pixxxxi",
+     "int8_matmul_mma_kernel<16 rows, byte loads>"),
 ])
 def test_sass_report_labels_each_template_instance(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label
+
+
+# a cuobjdump -sass excerpt: predicated and unpredicated instructions,
+# addresses past 0xffff, and opcodes that only share a prefix with a
+# counted one (IMAD.MOV counts as IMAD; IDP.4A as IDP)
+SASS_EXCERPT = """
+        /*0c40*/                   IMMA.16832.S8.S8 R24, R4.ROW, R20.COL, R24 ;
+        /*0c50*/              @!P0 IMMA.16832.S8.S8 R28, R4.ROW, R22.COL, R28 ;
+        /*0c60*/                   IDP.4A.S8.S8 R3, R8, R9, R3 ;
+        /*0c70*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*10c80*/                  IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+        /*10c90*/                  LOP3.LUT R5, R6, R7, R8, 0x96, !PT ;
+        /*10ca0*/                  PRMT R9, R10, 0x5140, R11 ;
+"""
+
+
+def test_sass_report_counts_tensor_core_and_dp4a_opcodes():
+    instrs = chip_smoke.sass_instructions(SASS_EXCERPT)
+    assert len(instrs) == 7 and instrs[4][0] == 0x10c80
+    assert chip_smoke.opcode_counts(instrs) == {
+        "LOP3": 1, "IMAD": 1, "SHF": 0, "HMMA": 1, "IMMA": 2, "IDP": 1}
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = """ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'
+ptxas info    : Function properties for _Zk1
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 36864 bytes smem
+ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'
+ptxas info    : Function properties for _Zk2
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+    assert chip_smoke.ptxas_usage(log) == {
+        "_Zk1": {"registers": 96, "stack": 0, "spill_stores": 0,
+                 "spill_loads": 0},
+        "_Zk2": {"registers": 255, "stack": 16, "spill_stores": 12,
+                 "spill_loads": 8}}
 
 
 def test_prefix_add_ops_counts_the_int32_circuit():

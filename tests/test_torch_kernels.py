@@ -224,6 +224,49 @@ def test_int8_matmul_plain_wraps_like_repro(k):
         ref.int8_matmul_plain(_t(a), _t(b)).numpy(), want)
 
 
+# (M, K, N, splits) for the split-K rehearsal: K of 8 and 22 stages (the
+# replays' 1024 and 2816) cut 1-8 ways, most with a ragged last range, and
+# K not a multiple of a stage
+SPLITK_CASES = ([(16, 1024, 32, s) for s in range(1, 9)]
+                + [(5, 2816, 24, s) for s in (3, 5, 8)]
+                + [(7, 1000, 9, s) for s in (1, 2, 3, 4)])
+
+
+@pytest.mark.parametrize("m,k,n,splits", SPLITK_CASES)
+def test_int8_matmul_splitk_plain_equals_repro_oracle_and_pallas(m, k, n,
+                                                                 splits):
+    """Each K range's product wrapped to int32 and the ranges summed with
+    int32 wrap in a shuffled order give the JAX package's product; at K =
+    1024 also its interpret-mode Pallas kernel's (blocks of 128 K)."""
+    jnp, repro_ops, repro_ref = _reference()
+    a, b = _matmul_operands(m, k, n, seed=splits)
+    want = np.asarray(repro_ref.ref_int8_matmul(jnp.asarray(a),
+                                                jnp.asarray(b)))
+    if k == 1024:
+        np.testing.assert_array_equal(
+            np.asarray(repro_ops.int8_matmul(jnp.asarray(a),
+                                             jnp.asarray(b))), want)
+    for seed in (0, 1):
+        got = ref.int8_matmul_splitk_plain(_t(a), _t(b), splits, seed=seed)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8, 64])
+def test_int8_matmul_splitk_plain_wraps_like_repro(splits):
+    """All -128 at K = 2**17: every sum is 2**31, which wraps to -2**31
+    however the ranges are cut and in whatever order they are added."""
+    jnp, _, repro_ref = _reference()
+    k = 1 << 17
+    a = np.full((3, k), -128, np.int8)
+    b = np.full((k, 2), -128, np.int8)
+    want = np.asarray(repro_ref.ref_int8_matmul(jnp.asarray(a),
+                                                jnp.asarray(b)))
+    assert (want == -2 ** 31).all()
+    np.testing.assert_array_equal(
+        ref.int8_matmul_splitk_plain(_t(a), _t(b), splits).numpy(), want)
+
+
 @pytest.mark.parametrize("kernel,dtype", [
     ("bitserial_add", np.int8), ("bitserial_mul", np.int32),
     ("shift_add_mul", np.int32)])
@@ -542,6 +585,46 @@ def test_cuda_int8_matmul_equals_its_plain_version():
     torch.cuda.synchronize()
     assert bool((got == -2 ** 31).all())
     assert ops.launch_counts()["int8_matmul"] == len(shapes) + 2
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_edges_equal_its_plain_version():
+    """K5 on its byte-load and split paths: A or B a contiguous view one
+    byte past an allocation's start, pitches not 16-byte aligned, a GEMV,
+    a small K at a large M, and all -128 where the split sums wrap; each
+    also unsplit and cut 3 ways."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
+
+    def view(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        flat.copy_(t.reshape(-1))
+        return flat.view(t.shape)
+
+    pairs = []
+    for m, k, n in ((48, 1024, 1024), (13, 37, 29)):
+        a, b = (_t(x).cuda() for x in _matmul_operands(m, k, n, seed=m))
+        pairs += [(view(a), b), (a, view(b))]
+        assert pairs[-2][0].data_ptr() % 16 and pairs[-1][1].data_ptr() % 16
+    for m, k, n in ((48, 1030, 8200), (1, 1024, 8192), (1024, 48, 1024)):
+        pairs.append(tuple(_t(x).cuda() for x in _matmul_operands(m, k, n)))
+    pairs.append((torch.full((48, 1 << 17), -128, dtype=torch.int8,
+                             device="cuda"),
+                  torch.full((1 << 17, 64), -128, dtype=torch.int8,
+                             device="cuda")))
+    ops.reset_launch_counts()
+    for a, b in pairs:
+        want = ref.int8_matmul_plain(a, b)
+        for splits in (0, 1, 3):
+            got = int8_matmul.int8_matmul(a, b, splits=splits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (tuple(a.shape), tuple(b.shape),
+                                            splits)
+        assert torch.equal(ops.int8_matmul(a, b), want)
+    assert bool((want == -2 ** 31).all())
+    assert ops.launch_counts()["int8_matmul"] == 4 * len(pairs)
 
 
 # -- K6 flash attention -------------------------------------------------------
