@@ -9,21 +9,29 @@ last line:
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` name/count;
 2. build  — ``csrc/ndp.cu`` and ``csrc/attention.cu`` compiled for sm_90a
    from this checkout; ptxas registers and spills, and per kernel its SASS
-   counts and loop bodies (the prefix adder's 16-byte loop, an element at
-   a time); every INT8 GEMM instance must run on the tensor cores (IMMA,
-   no IDP) without spilling;
+   counts and loop bodies (the 16-byte loops of the prefix adder, the IFP
+   multiplier and the match line, a unit of work at a time, with their
+   opcodes); every INT8 GEMM instance must run on the tensor cores (IMMA,
+   no IDP) without spilling, and every 16-byte instance of the adder, the
+   IFP multiplier and the match line must run a loop that holds a 16-byte
+   load, without spilling;
 3. kernels — each CUDA kernel held exactly equal to its plain PyTorch
    version over the kernel-test grids and the shapes the replays give it
    (the bit-plane multiplier and the prefix adder also on a ragged n, the
    jacobi1d length and the dtypes' extreme values; the adder also on the
    jacobi1d sweep's unaligned slices; the MWS sense on 1-6 pages of every
-   op, ragged, unaligned and with a tail; the INT8 GEMM on a layout probe,
+   op, ragged, unaligned and with a tail; the IFP multiplier on n % 4 = 1,
+   2, 3, the unaligned slices, bits 0, 1, 7, 31, 32 and the extremes; the
+   match line at wpr 1-4, 8, 16, 32 on 1 and 48 rows, whole and 4 bytes off, with
+   records planted first and last; the INT8 GEMM on a layout probe,
    the replay shapes, a GEMV, a small K, unaligned pitches and views and
    wrapping sums), flash attention within its tolerance (also
    with logits large enough to move the running max inside a tile), with
    CUDA-event times of the kernel, the plain version and the one PyTorch
-   call that computes the same function, beside the card's least time for
-   the work;
+   call that computes the same function (for the IFP multiplier and the
+   match line, which have none, a floor: ``torch.mul``, and the record
+   compare as two calls), beside the card's least time for the work, also
+   at one shape beyond L2 for the IFP multiplier and the match line;
 4. pipeline — jacobi1d, aes, xor_filter, heat3d and llama2_infer at paper
    scale through the package's entry points: numeric run on the card (its
    outputs' digest must be the JAX package's; fp32 matmuls without TF32),
@@ -161,6 +169,13 @@ EXTREMES = {np.int32: [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3],
 # MWS page counts held on the card: the main path's 1-3, the kernel's
 # 4-page instance, and two through its general instance
 MWS_PAGES = range(1, 7)
+# the IFP multiplier's edges: n % 4 = 1, 2, 3 (the elements after its last
+# whole 16 bytes), and the round counts at and around the ends of 0..32
+SHIFT_RAGGED = [(1, 4097), (1, 4098), (1, 4099), (3, 37)]
+SHIFT_BITS = (0, 1, 7, 31, 32)
+# the match line's record widths: its 16-byte path (4) and its
+# one-record-a-thread path (the rest)
+SEARCH_EDGE_WPR = (1, 2, 3, 4, 8, 16, 32)
 # the serving path: the default --arch of repro.launch.serve
 SERVE_ARCH = "tinyllama-1.1b"
 # full width and depth, bf16: two batches of four 1024-token prompts
@@ -277,6 +292,11 @@ def kernel_label(name: str) -> str:
                     "32-bit index" if index == "u32" else "64-bit index"]
         elif ident == "bitserial_add_kernel" and len(args) == 2:
             args = [args[0], "16-byte I/O" if args[1] else "unaligned"]
+        elif ident == "shift_add_mul_kernel" and len(args) == 2:
+            args = [f"{args[0] or 'any'} rounds",
+                    "16-byte I/O" if args[1] else "unaligned"]
+        elif ident == "search_chunk_kernel":
+            args = ["wpr 4", "16-byte loads"]
         elif ident == "int8_matmul_mma_kernel" and len(args) == 2:
             args = [f"{16 * args[0]} rows",
                     "16-byte loads" if args[1] else "byte loads"]
@@ -309,6 +329,67 @@ def opcode_counts(instrs) -> dict:
     return {op: ops_.count(op) for op in COUNTED_OPCODES}
 
 
+def loop_ranges(instrs) -> list:
+    """``(first, last)`` address of each loop body: from a backward
+    branch's target to the branch."""
+    loops = []
+    for addr, op, rest in instrs:
+        target = re.match(r"\s*(0x[0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and \
+                int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    return loops
+
+
+# the elementwise kernels whose 16-byte instances (a "16-byte" label) must
+# run a loop that holds a 16-byte global load, without spilling
+VECTOR_KERNELS = ("bitserial_add_kernel", "shift_add_mul_kernel",
+                  "search_chunk_kernel")
+
+
+def vector_unit(label: str):
+    """(count, noun, loads) of the work behind ``loads`` 16-byte loads of
+    a 16-byte loop body: 4 int32 or 16 int8 elements from two loads (adder,
+    IFP multiplier), or one 4-word record from one (match line).  A body
+    the compiler unrolled holds a multiple of ``loads``."""
+    if label.startswith("search_chunk_kernel"):
+        return 1, "record", 1
+    return (16 if "u8" in label else 4), "element", 2
+
+
+def vector_loop_report(label: str, instrs, use: dict) -> list:
+    """Lines that report each loop of a 16-byte instance of
+    VECTOR_KERNELS that holds a 16-byte global load (LDG...128): its
+    instructions, per unit of work (counted from its 16-byte loads), and
+    its opcodes.  Raises AssertionError when there is no such loop, or
+    when ptxas reported spills (``use`` from :func:`ptxas_usage`).  Other
+    kernels: []."""
+    if not (label.startswith(VECTOR_KERNELS) and "16-byte" in label):
+        return []
+    count, noun, loads = vector_unit(label)
+    lines = []
+    for first, last in loop_ranges(instrs):
+        body = [op for addr, op, _ in instrs
+                if first <= addr <= last and op != "NOP"]
+        wide = sum(op.startswith("LDG") and ".128" in op for op in body)
+        if not wide:
+            continue
+        units = max(1, wide // loads) * count
+        hist = {}
+        for op in body:
+            hist[op] = hist.get(op, 0) + 1
+        article = "an" if noun.startswith("e") else "a"
+        lines.append(f"16-byte loop body: {len(body)} instructions for "
+                     f"{units} {noun}{'s' if units > 1 else ''} a thread, "
+                     f"{len(body) / units:g} "
+                     f"{article} {noun}; opcodes {dict(sorted(hist.items()))}")
+    if not lines:
+        raise AssertionError(f"{label}: no loop with a 16-byte load")
+    if use.get("spill_stores") or use.get("spill_loads"):
+        raise AssertionError(f"{label} spills: {use}")
+    return lines
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes per mangled kernel name from ``ptxas
     -v``'s log: ``{name: {"registers", "stack", "spill_stores",
@@ -329,23 +410,25 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def sass_report(lib_path: str, nvcc: str) -> dict:
+def sass_report(lib_path: str, nvcc: str, usage: dict) -> dict:
     """Print, per kernel, what the compiler made of its loops: SASS
     instruction count, the counts of COUNTED_OPCODES (static: code the
     compiler copies for a divergent warp counts again), the length of each
     loop body (instructions from a backward branch's target to the
     branch), and its registers, stack and static shared bytes (``cuobjdump
-    -res-usage``).  For the prefix adder, the body of its 16-byte loop
-    (the loop that holds a 16-byte load) per element, and its opcodes.
-    Returns the opcode counts by kernel label ({} when ``cuobjdump`` is
-    missing, which is reported, not fatal)."""
+    -res-usage``).  For the 16-byte instances of the prefix adder, the IFP
+    multiplier and the match line, the body of each loop that holds a
+    16-byte load, per unit of work, and its opcodes; such an instance
+    without that loop, or with spills in ``usage`` (:func:`ptxas_usage`),
+    fails.  Returns the opcode counts by kernel label ({} when
+    ``cuobjdump`` is missing, which is reported, not fatal)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"  sass: {tool} not found")
         return {}
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    usage = dict(re.findall(
+    resources = dict(re.findall(
         r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
         subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
                        text=True, check=True, timeout=120).stdout))
@@ -356,36 +439,15 @@ def sass_report(lib_path: str, nvcc: str) -> dict:
         instrs = sass_instructions(chunk)
         ops_ = [op.split(".")[0] for _, op, _ in instrs]
         counts[label] = opcode_counts(instrs)
-        loops = []                               # (first, last address)
-        for addr, op, rest in instrs:
-            target = re.match(r"\s*(0x[0-9a-f]+)", rest)
-            if op.startswith("BRA") and target and \
-                    int(target.group(1), 16) < addr:
-                loops.append((int(target.group(1), 16), addr))
+        loops = loop_ranges(instrs)
         real = [o for o in ops_ if o != "NOP"]
         print(f"  sass {label}: {len(real)} instructions, "
               + ", ".join(f"{op} {n}" for op, n in counts[label].items())
               + f"; loop bodies "
               f"{sorted((b - a) // 16 + 1 for a, b in loops)}; "
-              f"{usage.get(name, 'resource usage not found')}")
-        if label.startswith("bitserial_add_kernel") and "16-byte" in label:
-            elems = 4 if "u32" in label else 16
-            found = False
-            for first, last in loops:
-                body = [op for addr, op, _ in instrs
-                        if first <= addr <= last and op != "NOP"]
-                if not any(op.startswith("LDG") and ".128" in op
-                           for op in body):
-                    continue
-                found = True
-                hist = {}
-                for op in body:
-                    hist[op] = hist.get(op, 0) + 1
-                print(f"    16-byte loop body: {len(body)} instructions for "
-                      f"{elems} elements a thread, {len(body) / elems:g} an "
-                      f"element; opcodes {dict(sorted(hist.items()))}")
-            if not found:
-                print("    16-byte loop body: no loop with a 16-byte load")
+              f"{resources.get(name, 'resource usage not found')}")
+        for line in vector_loop_report(label, instrs, usage.get(name, {})):
+            print("    " + line)
     return counts
 
 
@@ -784,9 +846,10 @@ def main() -> int:
                     "entry function" in line:
                 print("  ptxas:", line.strip())
         _build.library(stem)
-        counts = sass_report(info["path"], _build.find_nvcc())
+        usage = ptxas_usage(info["log"])
+        counts = sass_report(info["path"], _build.find_nvcc(), usage)
         # the INT8 GEMM: tensor cores only, and no spills
-        for name, use in ptxas_usage(info["log"]).items():
+        for name, use in usage.items():
             label = kernel_label(name)
             if not label.startswith("int8_matmul"):
                 continue
@@ -938,7 +1001,13 @@ def main() -> int:
     # the prefix adder and the MWS sense off their 16-byte paths: ragged n,
     # extremes, the jacobi1d slices (+1 and +2 elements), int8; 1-6 pages
     # of every op on whole and ragged pages, on a stack one element past an
-    # allocation's start, and on one page whose n leaves a tail
+    # allocation's start, and on one page whose n leaves a tail.  The IFP
+    # multiplier on n % 4 = 1, 2, 3, the jacobi1d slices (either operand
+    # off by 4 or 8 bytes), bits 0, 1, 7, 31 and 32 on its 16-byte and
+    # element paths, and the extremes; the match line at wpr 4 (its 16-byte
+    # path) and six other widths on 1 and 48 rows, whole and on a stack 4 bytes past an
+    # allocation's start, with the query planted in the first and the last
+    # record and a near miss (one bit off) in the second.
     n = jacobi1d.SCALES["paper"]["n"] - 2
     edges = []                                  # (kernel, operands, arg)
     for dt in (np.int32, np.int8):
@@ -953,6 +1022,30 @@ def main() -> int:
                        unaligned(rand(rng, (pages, 16, 256), dt))]
         edges += [("mws_bitwise", (st,), op) for st in stacks
                   for op in MWS_OPS]
+    for shape in SHIFT_RAGGED:
+        edges.append(("shift_add_mul",
+                      operands("shift_add_mul", np.int32, shape, None), 8))
+    for k in ("+1", "+2"):
+        a, b = operands("shift_add_mul", np.int32, (1, n), k)
+        edges += [("shift_add_mul", (a, b), 8), ("shift_add_mul", (b, a), 8)]
+    for bits in SHIFT_BITS:
+        a, b = operands("shift_add_mul", np.int32, (8, 512), None)
+        edges += [("shift_add_mul", (a, b), bits),
+                  ("shift_add_mul", (unaligned(a), b), bits)]
+    edges += [("shift_add_mul", operands("shift_add_mul", np.int32, None,
+                                         "extremes"), bits)
+              for bits in (8, 32)]
+    searches = []
+    for wpr in SEARCH_EDGE_WPR:
+        for rows, recs in ((1, 13), (48, 96)):
+            stack = rand(rng, (rows, recs * wpr), np.int32)
+            query = rand(rng, (wpr,), np.int32)
+            stack[0, :wpr] = query
+            stack[0, wpr:2 * wpr] = query
+            stack[0, 2 * wpr - 1] ^= 1 << 30           # the near miss
+            stack[-1, -wpr:] = query
+            searches += [(stack, query), (unaligned(stack), query)]
+    edges += [("search_pages", xs, None) for xs in searches]
     for name, xs, arg in edges:
         got = kernel_fn[name](*xs, arg)
         want = plain_fn[name](*xs, arg)
@@ -962,9 +1055,17 @@ def main() -> int:
                 f"{name} {xs[0].dtype} {tuple(xs[0].shape)} arg={arg} at "
                 f"{[x.data_ptr() % 16 for x in xs]} bytes past 16: kernel "
                 f"!= plain version")
-    print(f"{len(edges)} prefix-adder and MWS cases on ragged, unaligned, "
-          f"extreme and tail paths: equal to the plain versions")
-    del edges, stacks, xs, got, want       # out of the serve's peak memory
+        if name == "search_pages" and not (bool(got[0, 0]) and
+                                           bool(got[-1, -1]) and
+                                           not bool(got[0, 1])):
+            raise AssertionError(f"search_pages {tuple(xs[0].shape)} wpr="
+                                 f"{xs[1].numel()}: a planted record missed "
+                                 f"or the near miss matched")
+    print(f"{len(edges)} prefix-adder, MWS, IFP-multiplier and match-line "
+          f"cases on ragged, unaligned, extreme and tail paths: equal to the "
+          f"plain versions")
+    # out of the serve's peak memory
+    del edges, stacks, searches, stack, query, a, b, xs, got, want
 
     # flash attention: fp32 and bf16, causal or not, against the plain
     # version at ATTN_TOL
@@ -1020,6 +1121,14 @@ def main() -> int:
                "int8_matmul": lambda a, b, arg: torch._int_mm(a, b)}
     mws_library = {"and": torch.bitwise_and, "or": torch.bitwise_or,
                    "xor": torch.bitwise_xor}
+    # K3 and K4 have no one-call equivalent; as a floor only: torch.mul
+    # (not the same function: b is not masked to its low bits) and the
+    # record compare as two calls (eq, then all)
+    floor = {"shift_add_mul": ("torch.mul, not the same function",
+                               lambda a, b, arg: torch.mul(a, b)),
+             "search_pages": ("eq + all, two calls",
+                              lambda s, q, arg: (s.view(s.shape[0], -1,
+                                                        arg) == q).all(-1))}
     timed = [  # (label, kernel, shape, arg)
         ("jacobi1d", "bitserial_add", (1, n), None),
         ("jacobi1d", "bitserial_add", (1, n), "+1"),   # unaligned slices
@@ -1030,12 +1139,16 @@ def main() -> int:
         ("page", "bitserial_mul", PAGE_SHAPE, None),
         ("page", "shift_add_mul", PAGE_SHAPE, 8),
         ("heat3d", "bitserial_add", (m, m * m), None),
-        ("heat3d", "shift_add_mul", (m, m * m), 8),
+        ("heat3d", "shift_add_mul", (m, m * m), 8),    # 60 of K3's 63
         ("aes", "mws_bitwise", (2, aes_rows, 4096), "xor"),
         ("aes", "mws_bitwise", (3, aes_rows, 4096), "xor"),
         ("aes", "mws_bitwise", (1, aes_rows, 4096), "nand"),
         ("xor_filter", "mws_bitwise", (3, 1, keys), "xor"),
         ("xor_filter", "search_pages", (slots // 4096, 4096), SEARCH_WPR),
+        # operands beyond L2, for information: does the pass stream at the
+        # HBM rate?
+        ("large", "shift_add_mul", (1, 1 << 24), 8),
+        ("large", "search_pages", (8192, 4096), SEARCH_WPR),
     ]
     llama = llama2_infer.SCALES["paper"]
     seq, d, d_ff = llama["seq"], llama["d"], llama["d_ff"]
@@ -1064,10 +1177,9 @@ def main() -> int:
             nops = max(1, n_ops - 1) * elems
         elif name == "search_pages":
             lib = None
-            stack = xs[0]
-            recs = stack.numel() // arg
-            nbytes = stack.numel() * 4 + recs
-            nops = 2 * stack.numel()             # XNOR and AND per word
+            words = xs[0].numel()
+            nbytes = words * 4 + words // arg
+            nops = 2 * words                     # XNOR and AND per word
         elif name == "int8_matmul":
             lib = library[name]
             m_, k_, n_ = shape
@@ -1085,6 +1197,12 @@ def main() -> int:
             nops = (2 if name == "shift_add_mul" else 1) * elems
         lib_ms = (time_ms(lambda: lib(*xs, arg), 50, clock_hz)
                   if lib is not None else None)
+        floor_txt = ""
+        if name in floor:
+            what, fn = floor[name]
+            floor_txt = (f"  floor ({what}) "
+                         f"{time_ms(lambda: fn(*xs, arg), 50, clock_hz):.6f}"
+                         f" ms")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / (INT8_TENSOR_OPS_PER_S if name == "int8_matmul"
                          else int32_ops_per_s) * 1e3
@@ -1111,7 +1229,8 @@ def main() -> int:
               f"kernel {ms:.6f} ms  plain {plain_ms:.6f} ms  library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms  "
               f"bound {bound_ms:.6f} ms ({bound_by}; bytes {bytes_ms:.6f}, "
-              f"ops {ops_ms:.6f}{gate})  max_abs_err {err}", flush=True)
+              f"ops {ops_ms:.6f}{gate}){floor_txt}  max_abs_err {err}  "
+              f"[{card}]", flush=True)
         if err != 0:
             raise AssertionError(f"{name}: kernel != plain version")
         if name not in records:

@@ -9,14 +9,15 @@
 //                          See its own note below.
 //   shift_add_mul        — IFP (Ares-Flash) latch shift-and-add multiply;
 //                          replaces repro/kernels/shift_add.py
-//                          _shift_add_kernel.
+//                          _shift_add_kernel.  See its own note below.
 //   mws                  — IFP (Flash-Cosmos) multi-wordline sensing: a
 //                          bulk and/or/xor/nand/nor over n_ops stacked
 //                          pages; replaces repro/kernels/mws.py
 //                          _mws_kernel.  See its own note below.
 //   search               — IFP match line: XNOR of every record word with
 //                          the query, wired-AND over the record; replaces
-//                          repro/kernels/search.py _search_kernel.
+//                          repro/kernels/search.py _search_kernel.  See
+//                          its own note below.
 //   int8_matmul          — the INT8 GEMM of the quantized LLM workloads
 //                          (§5.4), int8[M,K] @ int8[K,N] -> int32[M,N];
 //                          replaces repro/kernels/int8_matmul.py
@@ -29,10 +30,11 @@
 // partial products, the PuD multiplier from full adders (XOR sum, MAJ
 // carry) over bit-planes.  It is not carried over block by block: no VMEM
 // tiles and no (8, 128) padding, but a pass over n contiguous elements,
-// neighbouring threads on neighbouring addresses (the adder and the MWS
-// sense 16 bytes a thread, the IFP multiplier and the match line one
-// element or record a thread, the PuD multiplier 32 elements a thread), the
-// ragged end masked by the index test.
+// neighbouring threads on neighbouring addresses (the adder, the MWS and
+// the IFP multiplier 16 bytes a thread, the match line one 4-word record
+// of 16 bytes a thread, the PuD multiplier 32 elements a thread; each on
+// aligned operands, with an element or a record a thread for the rest),
+// the ragged end masked by the index test.
 //
 // All arithmetic runs on unsigned views (uint8_t / uint32_t):
 //   * a left shift of a negative signed value is undefined before C++20;
@@ -392,26 +394,78 @@ __global__ void __launch_bounds__(kPlaneThreads)
   }
 }
 
-// Ares-Flash latch rounds: the multiplier's bit i is broadcast, ANDed with
-// the page shifted by i, and accumulated; only the low `bits` bits of b
-// take part, as in the latch datapath.
-template <typename U>
-__global__ void shift_add_mul_kernel(const U* __restrict__ a,
-                                     const U* __restrict__ b,
-                                     U* __restrict__ out, long long n,
-                                     int bits) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const U x = a[i];
-    const U y = b[i];
-    U acc = 0;
-    for (int k = 0; k < bits; ++k) {
-      const U pp = ((y >> k) & 1u) ? static_cast<U>(x << k) : U(0);
-      acc = static_cast<U>(acc + pp);
+// Ares-Flash latch rounds (IFP multiply), int32: round k broadcasts bit k
+// of the multiplier, ANDs it onto the page shifted by k, and accumulates;
+// only the low `bits` bits of b take part, as in the latch datapath.  The
+// source has no multiply, and no round is skipped.
+//
+// Bound on an H100: the bytes, 12 an element.  The 8 rounds every replay
+// uses are ~40 integer operations an element as the TPU kernel counts them
+// (0.57 us at heat3d's 238328 elements at the card's INT32 rate, against
+// 0.85 us of bytes), so the kernel is about keeping loads in flight and
+// few instructions a round.  Where a, b and out are 16-byte aligned, a
+// thread reads 4 elements of each operand with one 16-byte load, runs the
+// rounds on the 4 lanes and stores 16 bytes (kVec); the n % 4 elements
+// after the last whole 16 bytes, and every element of unaligned operands
+// (a view at +4 B), go one a thread.  kBits = 8, the width the replays
+// use, unrolls the rounds; kBits = 0 takes `bits` (0..32) from the
+// argument.
+//
+// A round is a predicated add, as the latch adds the shifted page only
+// where the broadcast bit is set (the TPU kernel's where(bit, a << i, 0)).
+// Written in C, as a select or an AND with the bit's mask, the compiler
+// makes a mask of two shifts out of every bit: ~38 instructions an
+// element.  As a predicate on the bit ANDed out of b, ptxas moves b's bits
+// into predicates (R2P) and adds each shifted page under its predicate,
+// the shift and the add fused into one IMAD by 2^k (the unit it also uses
+// for plain shifts, IMAD.SHL): one predicated instruction a round, ~14 an
+// element (PERF.md).
+__device__ __forceinline__ uint32_t latch_round(uint32_t acc, uint32_t x,
+                                                uint32_t y, int k) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ne.u32 p, %2, 0;\n\t"
+      "@p add.u32 %0, %0, %1;\n\t}"
+      : "+r"(acc)
+      : "r"(x << k), "r"(y & (1u << k)));
+  return acc;
+}
+
+template <int kBits>
+__device__ __forceinline__ uint32_t latch_rounds(uint32_t x, uint32_t y,
+                                                 int bits) {
+  uint32_t acc = 0;
+  if constexpr (kBits > 0) {
+#pragma unroll
+    for (int k = 0; k < kBits; ++k) acc = latch_round(acc, x, y, k);
+  } else {
+    for (int k = 0; k < bits; ++k) acc = latch_round(acc, x, y, k);
+  }
+  return acc;
+}
+
+template <int kBits, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    shift_add_mul_kernel(const uint32_t* __restrict__ a,
+                         const uint32_t* __restrict__ b,
+                         uint32_t* __restrict__ out, long long n, int bits) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  long long done = 0;
+  if (kVec) {
+    const long long nv = n / 4;
+    for (long long v = i; v < nv; v += stride) {
+      const uint4 x = reinterpret_cast<const uint4*>(a)[v];
+      const uint4 y = reinterpret_cast<const uint4*>(b)[v];
+      reinterpret_cast<uint4*>(out)[v] = make_uint4(
+          latch_rounds<kBits>(x.x, y.x, bits),
+          latch_rounds<kBits>(x.y, y.y, bits),
+          latch_rounds<kBits>(x.z, y.z, bits),
+          latch_rounds<kBits>(x.w, y.w, bits));
     }
-    out[i] = acc;
+    done = nv * 4;
+  }
+  for (i += done; i < n; i += stride) {
+    out[i] = latch_rounds<kBits>(a[i], b[i], bits);
   }
 }
 
@@ -514,21 +568,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One thread per record of wpr words (records are contiguous: record r
-// starts at word r * wpr of the flattened [rows, words] stack).  The match
-// line starts charged (all ones) and every word's XNOR with the query is
-// ANDed onto it; the record matches iff it is still all ones.
-__global__ void search_kernel(const uint32_t* __restrict__ stack,
-                              const uint32_t* __restrict__ query,
-                              unsigned char* __restrict__ out,
-                              long long n_recs, int wpr) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x +
+// The IFP match line over records of wpr words (records are contiguous:
+// record r starts at word r * wpr of the flattened [rows, words] stack).
+// The line starts charged (all ones) and every word's XNOR with its query
+// word is ANDed onto it (one LOP3); the record matches iff it is still all
+// ones.
+//
+// Bound on an H100: the bytes, 4 * wpr read and 1 written a record.  At the
+// replay's [48, 4096] with wpr 4 that is 0.25 us, so the launch and one
+// wave's load latency set the time, and the kernel is about few, wide,
+// coalesced loads spread over every SM.  Two paths, chosen by the
+// launcher:
+//   * wpr 4, the replay's record, on a 16-byte aligned stack
+//     (search_chunk_kernel): a record is one 16-byte load, sensed against
+//     the query held in registers.  One record a thread: at [48, 4096]
+//     four records a thread (a 4-byte store) leave 48 blocks for 132 SMs
+//     and loads 64 bytes apart, and measured slower (PERF.md).
+//   * any other wpr, and a stack not 16-byte aligned (a view at +4 B): one
+//     thread a record (search_kernel), the query staged once a block in
+//     shared memory where it fits.
+
+// one word onto the match line: line AND XNOR(word, query word)
+__device__ __forceinline__ uint32_t sense_word(uint32_t line, uint32_t word,
+                                               uint32_t q) {
+  return line & ~(word ^ q);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    search_chunk_kernel(const uint4* __restrict__ stack,
+                        const uint32_t* __restrict__ query,
+                        unsigned char* __restrict__ out, long long n_recs) {
+  const uint32_t q0 = query[0], q1 = query[1], q2 = query[2], q3 = query[3];
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long r = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       r < n_recs; r += stride) {
+    const uint4 x = stack[r];
+    const uint32_t line = sense_word(
+        sense_word(sense_word(sense_word(~0u, x.x, q0), x.y, q1), x.z, q2),
+        x.w, q3);
+    out[r] = line == ~0u ? 1 : 0;
+  }
+}
+
+// at most this many query words are staged in shared memory (16 KiB)
+constexpr int kSearchStagedWords = 4096;
+
+__global__ void __launch_bounds__(kThreads)
+    search_kernel(const uint32_t* __restrict__ stack,
+                  const uint32_t* __restrict__ query,
+                  unsigned char* __restrict__ out, long long n_recs, int wpr,
+                  int staged) {
+  extern __shared__ uint32_t staged_query[];
+  const uint32_t* q = query;
+  if (staged) {
+    for (int k = threadIdx.x; k < wpr; k += kThreads) {
+      staged_query[k] = query[k];
+    }
+    __syncthreads();
+    q = staged_query;
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long r = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        r < n_recs; r += stride) {
     const uint32_t* rec = stack + r * wpr;
     uint32_t line = ~0u;
-    for (int k = 0; k < wpr; ++k) line &= ~(rec[k] ^ query[k]);
+    for (int k = 0; k < wpr; ++k) line = sense_word(line, rec[k], q[k]);
     out[r] = line == ~0u ? 1 : 0;
   }
 }
@@ -877,15 +983,35 @@ cudaError_t launch_mul(const void* a, const void* b, void* out, long long n,
   return cudaGetLastError();
 }
 
-template <typename U>
+template <int kBits>
+void launch_shift_add_rounds(const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, long long n, int bits, bool vec,
+                             cudaStream_t st) {
+  if (vec) {
+    shift_add_mul_kernel<kBits, true><<<grid_for(n, kThreads * 4), kThreads,
+                                        0, st>>>(a, b, out, n, bits);
+  } else {
+    shift_add_mul_kernel<kBits, false><<<grid_for(n), kThreads, 0, st>>>(
+        a, b, out, n, bits);
+  }
+}
+
 cudaError_t launch_shift_add(const void* a, const void* b, void* out,
                              long long n, int bits, void* stream) {
+  if (bits < 0 || bits > 32) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
-  if (bits < 0 || bits > Width<U>::value) return cudaErrorInvalidValue;
-  shift_add_mul_kernel<U><<<grid_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const U*>(a), static_cast<const U*>(b),
-      static_cast<U*>(out), n, bits);
+  const auto* x = static_cast<const uint32_t*>(a);
+  const auto* y = static_cast<const uint32_t*>(b);
+  auto* o = static_cast<uint32_t*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ((reinterpret_cast<uintptr_t>(a) |
+                     reinterpret_cast<uintptr_t>(b) |
+                     reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  if (bits == 8) {
+    launch_shift_add_rounds<8>(x, y, o, n, bits, vec, st);
+  } else {
+    launch_shift_add_rounds<0>(x, y, o, n, bits, vec, st);
+  }
   return cudaGetLastError();
 }
 
@@ -959,10 +1085,19 @@ cudaError_t launch_search(const void* stack, const void* query, void* out,
                           long long n_recs, int wpr, void* stream) {
   if (wpr < 1) return cudaErrorInvalidValue;
   if (n_recs <= 0) return cudaSuccess;
-  search_kernel<<<grid_for(n_recs), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(stack), static_cast<const uint32_t*>(query),
-      static_cast<unsigned char*>(out), n_recs, wpr);
+  const auto* s = static_cast<const uint32_t*>(stack);
+  const auto* q = static_cast<const uint32_t*>(query);
+  auto* o = static_cast<unsigned char*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wpr == 4 && reinterpret_cast<uintptr_t>(stack) % 16 == 0) {
+    search_chunk_kernel<<<grid_for(n_recs), kThreads, 0, st>>>(
+        static_cast<const uint4*>(stack), q, o, n_recs);
+  } else {
+    const int staged = wpr <= kSearchStagedWords;
+    search_kernel<<<grid_for(n_recs), kThreads,
+                    staged ? wpr * sizeof(uint32_t) : 0, st>>>(
+        s, q, o, n_recs, wpr, staged);
+  }
   return cudaGetLastError();
 }
 
@@ -1127,8 +1262,7 @@ int ndp_bitserial_mul_i32(const void* a, const void* b, void* out,
 
 int ndp_shift_add_mul_i32(const void* a, const void* b, void* out,
                           long long n, int bits, void* stream) {
-  return static_cast<int>(
-      launch_shift_add<uint32_t>(a, b, out, n, bits, stream));
+  return static_cast<int>(launch_shift_add(a, b, out, n, bits, stream));
 }
 
 }  // extern "C"

@@ -26,12 +26,13 @@ same rounded weights, so its output is a mean of v under weights within
 once (one bf16 ulp, 2**-8 relative, apart at most from that rounding).
 The largest |kernel - plain| measured on the card is in PERF.md.
 
-Four more functions rehearse the redesigned kernels' algorithms on the
+Five more functions rehearse the redesigned kernels' algorithms on the
 CPU (no dispatch path uses them): :func:`bitserial_add_prefix_plain`, the
 PuD adder as a log-depth prefix circuit; :func:`bitserial_mul_planes_plain`,
-the PuD multiplier on bit-planes; :func:`int8_matmul_splitk_plain`, the
-INT8 GEMM's split-K sum; and :func:`flash_attention_tiled_plain`, the bf16
-attention kernel's tiled numerics.
+the PuD multiplier on bit-planes; :func:`search_chunked_plain`, the match
+line on 16-byte records; :func:`int8_matmul_splitk_plain`, the INT8 GEMM's
+split-K sum; and :func:`flash_attention_tiled_plain`, the bf16 attention
+kernel's tiled numerics.
 """
 from __future__ import annotations
 
@@ -213,6 +214,24 @@ def search_plain(stack: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     for k in range(wpr):
         line = line & ~(recv[..., k] ^ query[k])
     return line == -1
+
+
+def search_chunked_plain(stack: torch.Tensor,
+                         query: torch.Tensor) -> torch.Tensor:
+    """The match-line kernel's 16-byte path in torch ops, for records of 4
+    words (the xor_filter replay's): the flattened stack as 16-byte chunks,
+    one record each, every word XNORed against the query held whole and
+    ANDed onto a line that starts all ones."""
+    rows, words = stack.shape
+    if tuple(query.shape) != (4,):
+        raise ValueError(f"the 16-byte path senses records of 4 words, not "
+                         f"{tuple(query.shape)}")
+    sensed = ~(stack.reshape(-1, 4) ^ query)
+    line = torch.full(sensed.shape[:1], -1, dtype=stack.dtype,
+                      device=stack.device)
+    for k in range(4):
+        line = line & sensed[:, k]
+    return (line == -1).reshape(rows, words // 4)
 
 
 def ref_mws(stack: torch.Tensor, op: str) -> torch.Tensor:

@@ -7,11 +7,15 @@ holds records of ``wpr`` consecutive words; the result is the bool match
 bitmap ``[rows, words / wpr]``.
 
 Replaces the Pallas kernel ``repro/kernels/search.py`` ``_search_kernel``
-with the CUDA kernel ``search_kernel`` of ``csrc/ndp.cu``: one thread per
-record ANDs the XNOR of each of its words with the query onto a match line
-held in a register and writes one byte.  The TPU kernel tiles 8 rows at a
-time; here there is no tile, so any row count passes unpadded.  Bound on an
-H100: bytes, 4 * wpr read and 1 written per record (PERF.md).
+with the CUDA kernels of ``csrc/ndp.cu``, all of one match line: XNOR of
+each record word with its query word, ANDed onto a line that starts all
+ones.  Records of 4 words (16 bytes, the xor_filter replay's) on a 16-byte
+aligned stack are sensed one 16-byte load a thread against the query held
+in registers (``search_chunk_kernel``); any other wpr, and an unaligned
+stack, take one thread a record with the query staged in shared memory
+(``search_kernel``).  The TPU kernel tiles 8 rows at a time; here
+there is no tile, so any row count passes unpadded.  Bound on an H100:
+bytes, 4 * wpr read and 1 written per record (PERF.md).
 
 ``LAUNCHES`` counts kernel launches.
 """

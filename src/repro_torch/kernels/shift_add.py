@@ -8,11 +8,18 @@ the latch datapath width.
 
 Replaces the Pallas kernel ``repro/kernels/shift_add.py``
 ``_shift_add_kernel`` with the CUDA kernel ``shift_add_mul_kernel`` of
-``csrc/ndp.cu``: one flat grid-stride pass, one element per thread per
-step, the rounds in registers on the unsigned view.  int32 only, as the
-IFP path uses it.  At bits = 8 its ~5 integer ops per round (40 per
-element) against 12 bytes moved stay below the H100's ~5 int32 ops per
-byte of HBM bandwidth, so memory bounds it (PERF.md).
+``csrc/ndp.cu``: one flat grid-stride pass, the rounds in registers on the
+unsigned view (bit k of b as a predicate, a << k added under it; no
+multiply in the source, each round one predicated shift-add on the card).
+int32 only, as the IFP path uses it.  Where a, b and the
+output are 16-byte aligned, a thread reads 4 elements of each operand with
+one 16-byte load and stores 16 bytes; the last n % 4 elements and
+unaligned operands go one element a thread.  The 8 rounds every replay
+uses are unrolled (a template instance); other widths, 0..32, loop.  At
+bits = 8 the card issues ~14 instructions an element (the multiplier's
+bits moved into predicates, one predicated shift-add a round) against 12
+bytes moved, under the H100's ~5 int32 ops per byte of HBM bandwidth, so
+memory bounds it (PERF.md).
 
 ``LAUNCHES`` counts kernel launches.
 """

@@ -117,6 +117,12 @@ def test_serve_phase_rehearsed_on_the_cpu():
     ("_ZN12_GLOBAL__N_121flash_attn_mma_kernelILi64EEEvPK13__nv_bfloat16S3_"
      "S3_PS1_xxxif", "flash_attn_mma_kernel<bf16, dh 64>"),
     ("_ZN12_GLOBAL__N_113search_kernelEPKjS1_Phxi", "search_kernel"),
+    ("_ZN12_GLOBAL__N_120shift_add_mul_kernelILi8ELb1EEEvPKjS2_Pjxi",
+     "shift_add_mul_kernel<8 rounds, 16-byte I/O>"),
+    ("_ZN12_GLOBAL__N_120shift_add_mul_kernelILi0ELb0EEEvPKjS2_Pjxi",
+     "shift_add_mul_kernel<any rounds, unaligned>"),
+    ("_ZN12_GLOBAL__N_119search_chunk_kernelEPK5uint4PKjPhx",
+     "search_chunk_kernel<wpr 4, 16-byte loads>"),
     ("_ZN38_GLOBAL__N__b0ad16ce_6_ndp_cu_719fb58a22int8_matmul_mma_kernel"
      "ILi3ELb1EEEvPKaS2_Pixxxxi",
      "int8_matmul_mma_kernel<48 rows, 16-byte loads>"),
@@ -171,3 +177,87 @@ def test_prefix_add_ops_counts_the_int32_circuit():
     and a LOP3 each, the sum's shift and XOR3: 22 (the ripple's 3W + 1 was
     97)."""
     assert chip_smoke.prefix_add_ops(32) == 22
+
+
+# a grid-stride loop as cuobjdump -sass prints it: the body runs from the
+# backward branch's target (0x0100) to the branch
+LOOP_WITH_VECTOR_LOAD = """
+        /*0100*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0110*/                   LDG.E.128.CONSTANT R8, desc[UR4][R12.64] ;
+        /*0120*/                   LOP3.LUT R4, R4, R8, RZ, 0xc3, !PT ;
+        /*0130*/                   STG.E.128 desc[UR4][R14.64], R4 ;
+        /*0140*/              @P0 BRA 0x100 ;
+        /*0150*/                   EXIT ;
+"""
+
+
+def test_vector_loop_report_reads_the_16_byte_loop():
+    instrs = chip_smoke.sass_instructions(LOOP_WITH_VECTOR_LOAD)
+    assert chip_smoke.loop_ranges(instrs) == [(0x100, 0x140)]
+    lines = chip_smoke.vector_loop_report(
+        "shift_add_mul_kernel<8 rounds, 16-byte I/O>", instrs,
+        {"spill_stores": 0, "spill_loads": 0})
+    assert len(lines) == 1 and "5 instructions for 4 elements" in lines[0]
+    assert "1.25 an element" in lines[0]
+    assert "'LDG.E.128.CONSTANT': 2" in lines[0]
+    lines = chip_smoke.vector_loop_report(
+        "search_chunk_kernel<wpr 4, 16-byte loads>", instrs, {})
+    # two 16-byte loads: a body unrolled over two records
+    assert "for 2 records a thread, 2.5 a record" in lines[0]
+    # only the 16-byte instances of the adder, K3 and K4 are read
+    assert chip_smoke.vector_loop_report(
+        "shift_add_mul_kernel<any rounds, unaligned>", instrs, {}) == []
+    assert chip_smoke.vector_loop_report(
+        "int8_matmul_mma_kernel<48 rows, 16-byte loads>", instrs, {}) == []
+
+
+@pytest.mark.parametrize("label", [
+    "shift_add_mul_kernel<8 rounds, 16-byte I/O>",
+    "search_chunk_kernel<wpr 4, 16-byte loads>",
+    "bitserial_add_kernel<u32, 16-byte I/O>"])
+def test_vector_loop_report_fails_without_a_16_byte_loop_or_with_spills(
+        label):
+    scalar = chip_smoke.sass_instructions(
+        LOOP_WITH_VECTOR_LOAD.replace(".128", ""))
+    with pytest.raises(AssertionError, match="no loop with a 16-byte load"):
+        chip_smoke.vector_loop_report(label, scalar, {})
+    # a 16-byte load outside every loop does not count
+    straight = chip_smoke.sass_instructions(
+        LOOP_WITH_VECTOR_LOAD.replace("@P0 BRA 0x100", "@P0 BRA 0x150"))
+    with pytest.raises(AssertionError, match="no loop with a 16-byte load"):
+        chip_smoke.vector_loop_report(label, straight, {})
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.vector_loop_report(
+            label, chip_smoke.sass_instructions(LOOP_WITH_VECTOR_LOAD),
+            {"spill_stores": 8, "spill_loads": 8})
+
+
+def test_sass_report_runs_the_vector_check_on_each_function(tmp_path,
+                                                            capsys):
+    """``sass_report`` end to end on a stand-in ``cuobjdump`` beside a
+    stand-in ``nvcc``: it prints each function's counts and the 16-byte
+    loop of a K3 vector instance, and fails on one that spills."""
+    name = "_ZN12_GLOBAL__N_120shift_add_mul_kernelILi8ELb1EEEvPKjS2_Pjxi"
+    tool = tmp_path / "cuobjdump"
+    tool.write_text("#!/bin/sh\n"
+                    "if [ \"$1\" = -res-usage ]; then\n"
+                    f"  printf ' Function {name}:\\n  REG:36 STACK:0 "
+                    "SHARED:0 LOCAL:0\\n'\n"
+                    "else\n"
+                    f"  printf '\\t\\tFunction : {name}\\n'\n"
+                    f"  cat <<'SASS'\n{LOOP_WITH_VECTOR_LOAD}SASS\n"
+                    "fi\n")
+    tool.chmod(0o755)
+    nvcc = str(tmp_path / "nvcc")
+    clean = {name: {"registers": 36, "stack": 0, "spill_stores": 0,
+                    "spill_loads": 0}}
+    counts = chip_smoke.sass_report("lib.so", nvcc, clean)
+    label = "shift_add_mul_kernel<8 rounds, 16-byte I/O>"
+    assert counts == {label: {"LOP3": 1, "IMAD": 0, "SHF": 0, "HMMA": 0,
+                              "IMMA": 0, "IDP": 0}}
+    out = capsys.readouterr().out
+    assert f"sass {label}: 6 instructions" in out and "REG:36" in out
+    assert "16-byte loop body: 5 instructions for 4 elements" in out
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.sass_report("lib.so", nvcc, {name: dict(
+            clean[name], spill_stores=4)})

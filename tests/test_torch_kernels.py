@@ -166,6 +166,65 @@ def test_shift_add_plain_equals_repro_oracle(shape, bits):
         ref.ref_shift_add_mul(_t(a), _t(b), bits).numpy(), want)
 
 
+# the IFP multiplier's edges: n % 4 = 1, 2, 3 (the elements after the
+# kernel's last whole 16 bytes), the round counts at the ends of 0..32 and
+# the replays' 8
+SHIFT_RAGGED = [(1, 4097), (1, 4098), (1, 4099), (3, 37)]
+SHIFT_EDGE_BITS = [0, 1, 8, 31, 32]
+SHIFT_EXTREMES = [-2 ** 31, -1, 2 ** 31 - 1, 0, 1, 3, 41, 85]
+
+
+def _shift_add_oracle(a, b, bits):
+    """The JAX package's answer for ``a * (b & (2**bits - 1))``: its oracle
+    ``ref_shift_add_mul``, except at bits = 32, where that oracle's mask
+    (2**32 - 1) overflows int32 in JAX and the answer is its wrapping
+    multiply ``ref_bitserial_mul``; at bits = 32 also its interpret-mode
+    Pallas kernel, which takes the 32 rounds, where its tiling takes the
+    shape (columns padded to 128 that 512-column blocks divide)."""
+    jnp, repro_ops, repro_ref = _reference()
+    if bits < 32:
+        return np.asarray(repro_ref.ref_shift_add_mul(jnp.asarray(a),
+                                                      jnp.asarray(b), bits))
+    want = np.asarray(repro_ref.ref_bitserial_mul(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+    cols = -(-a.shape[1] // 128) * 128
+    if cols <= 512 or cols % 512 == 0:
+        np.testing.assert_array_equal(
+            np.asarray(repro_ops.shift_add_mul(jnp.asarray(a),
+                                               jnp.asarray(b), bits=32)),
+            want)
+    return want
+
+
+@pytest.mark.parametrize("shape,bits", [(s, b) for s in SHIFT_RAGGED
+                                        for b in SHIFT_EDGE_BITS])
+def test_shift_add_plain_edges_equal_repro(shape, bits):
+    """Ragged n and the round counts at the ends of the kernel's range."""
+    a, b = _pair(shape, np.int32, seed=bits)
+    np.testing.assert_array_equal(
+        ref.shift_add_mul_plain(_t(a), _t(b), bits).numpy(),
+        _shift_add_oracle(a, b, bits))
+
+
+@pytest.mark.parametrize("case", ["extremes 8", "extremes 32", "x85", "x41"])
+def test_shift_add_plain_extremes_and_replay_multipliers_equal_repro(case):
+    """Every ordered pair of int32's extremes (and the replays' multipliers)
+    at 8 and 32 rounds; the jacobi1d (x85) and heat3d (x41) broadcast
+    multipliers over random pages at 8 rounds."""
+    if case.startswith("extremes"):
+        bits = int(case.split()[1])
+        a, b = np.meshgrid(np.array(SHIFT_EXTREMES, np.int32),
+                           np.array(SHIFT_EXTREMES, np.int32))
+        a, b = a.reshape(1, -1), b.reshape(1, -1)
+    else:
+        bits = 8
+        a = _pair((3, 37), np.int32, seed=7)[0]
+        b = np.full_like(a, int(case[1:]))
+    np.testing.assert_array_equal(
+        ref.shift_add_mul_plain(_t(a), _t(b), bits).numpy(),
+        _shift_add_oracle(a, b, bits))
+
+
 @pytest.mark.parametrize("n_ops,op,dtype", [
     pytest.param(*c, marks=pytest.mark.slow) if c[0] == 48 else c
     for c in MWS_GRID])
@@ -193,6 +252,40 @@ def test_search_plain_equals_repro_oracle_and_pallas(wpr, rows):
         ref.search_plain(_t(stack), _t(query)).numpy(), want)
     np.testing.assert_array_equal(
         ref.ref_search(_t(stack), _t(query)).numpy(), want)
+
+
+# the match line's 16-byte path (records of 4 words): row counts, and row
+# widths of 3 records (planted, near miss, planted) up to a page
+SEARCH_CHUNKED = [(rows, words) for rows in (1, 13, 48)
+                  for words in (12, 96, 1024)]
+
+
+@pytest.mark.parametrize("rows,words", SEARCH_CHUNKED)
+def test_search_chunked_plain_equals_repro_oracle_and_pallas(rows, words):
+    """The match line on 16-byte records against the JAX package's oracle
+    and its interpret-mode Pallas kernel, with the query planted in the
+    first and the last record and a near miss (one bit off) in the
+    second."""
+    jnp, repro_ops, repro_ref = _reference()
+    rng = np.random.default_rng(rows * 10000 + words)
+    stack = _rand(rng, (rows, words), np.int32)
+    query = _rand(rng, (4,), np.int32)
+    stack[0, :4] = stack[0, 4:8] = stack[-1, -4:] = query
+    stack[0, 7] ^= 1 << 30
+    want = np.asarray(repro_ref.ref_search(jnp.asarray(stack),
+                                           jnp.asarray(query)))
+    assert want[0, 0] and want[-1, -1] and not want[0, 1]
+    np.testing.assert_array_equal(
+        np.asarray(repro_ops.search_pages(jnp.asarray(stack),
+                                          jnp.asarray(query))), want)
+    np.testing.assert_array_equal(
+        ref.search_chunked_plain(_t(stack), _t(query)).numpy(), want)
+
+
+def test_search_chunked_plain_takes_only_records_of_4_words():
+    with pytest.raises(ValueError, match="records of 4 words"):
+        ref.search_chunked_plain(torch.zeros(2, 24, dtype=torch.int32),
+                                 torch.zeros(8, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("m,k,n", MATMUL_GRID)
@@ -530,6 +623,86 @@ def test_cuda_add_and_mws_edges_equal_their_plain_versions():
     assert ops.launch_counts() == {
         **{k: 0 for k in ops.launch_counts()},
         "bitserial_add": len(pairs), "mws_bitwise": len(stacks) * 5}
+
+
+def _offset(t, elems):
+    """``t``'s values in a contiguous view ``elems`` elements past the
+    start of an allocation on ``t``'s device."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype,
+                       device=t.device)[elems:]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
+@pytest.mark.cuda
+def test_cuda_shift_add_edges_equal_its_plain_version():
+    """K3 on its 16-byte and element paths: every round count 0..32 on
+    aligned operands and on a view 4 bytes off, ragged n (n % 4 = 1, 2, 3),
+    either operand at +4 or +8 bytes (the jacobi1d sweep's slices), and
+    every ordered pair of int32's extremes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
+    ops.reset_launch_counts()
+    calls = []                                   # (a, b, bits)
+    for bits in range(33):
+        a, b = (_t(x).cuda() for x in _pair((8, 512), np.int32, seed=bits))
+        calls += [(a, b, bits), (_offset(a, 1), b, bits)]
+    for shape in SHIFT_RAGGED:
+        a, b = (_t(x).cuda() for x in _pair(shape, np.int32, seed=2))
+        calls += [(a, b, 8), (a, b, 13)]
+    base = _t(_rand(np.random.default_rng(5), (1, 655360),
+                    np.int32)).cuda()
+    for k in (1, 2):
+        x, y = base[:, :655358], base[:, k:k + 655358]
+        assert y.data_ptr() % 16
+        calls += [(x, y, 8), (y, x, 8)]
+    a, b = np.meshgrid(np.array(SHIFT_EXTREMES, np.int32),
+                       np.array(SHIFT_EXTREMES, np.int32))
+    a, b = _t(a.reshape(1, -1)).cuda(), _t(b.reshape(1, -1)).cuda()
+    calls += [(a, b, bits) for bits in (0, 1, 8, 31, 32)]
+    for a, b, bits in calls:
+        got = ops.shift_add_mul(a, b, bits=bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.shift_add_mul_plain(a, b, bits)), (
+            tuple(a.shape), a.data_ptr() % 16, b.data_ptr() % 16, bits)
+    assert ops.launch_counts() == {**{k: 0 for k in ops.launch_counts()},
+                                   "shift_add_mul": len(calls)}
+
+
+@pytest.mark.cuda
+def test_cuda_search_edges_equal_its_plain_version():
+    """K4 on its two paths: wpr 4 (a 16-byte record a thread) and wpr 1,
+    2, 3, 8, 16 and 32 (a record a thread, the query in shared memory), on
+    1, 13 and 48 rows with a ragged record count, whole and on a stack view
+    4 bytes off (which takes wpr 4 off its 16-byte path), the query planted
+    in the first and the last record and a near miss in the second."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/ndp.cu: not found")
+    ops.reset_launch_counts()
+    n = 0
+    for wpr in (1, 2, 3, 4, 8, 16, 32):
+        for rows, recs in ((1, 13), (13, 13), (48, 96)):
+            rng = np.random.default_rng(wpr + rows)
+            stack = _rand(rng, (rows, recs * wpr), np.int32)
+            query = _rand(rng, (wpr,), np.int32)
+            stack[0, :wpr] = stack[0, wpr:2 * wpr] = query
+            stack[-1, -wpr:] = query
+            stack[0, 2 * wpr - 1] ^= 1 << 30
+            stack, query = _t(stack).cuda(), _t(query).cuda()
+            for s in (stack, _offset(stack, 1)):
+                got = ops.search_pages(s, query)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref.search_plain(stack, query)), (
+                    wpr, rows, s.data_ptr() % 16)
+                assert bool(got[0, 0]) and bool(got[-1, -1])
+                assert not bool(got[0, 1])
+                n += 1
+    assert ops.launch_counts() == {**{k: 0 for k in ops.launch_counts()},
+                                   "search_pages": n}
 
 
 @pytest.mark.cuda
