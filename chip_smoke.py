@@ -31,12 +31,17 @@ last line:
    call that computes the same function (for the IFP multiplier and the
    match line, which have none, a floor: ``torch.mul``, and the record
    compare as two calls), beside the card's least time for the work, also
-   at one shape beyond L2 for the IFP multiplier and the match line;
-4. pipeline — jacobi1d, aes, xor_filter, heat3d and llama2_infer at paper
-   scale through the package's entry points: numeric run on the card (its
-   outputs' digest must be the JAX package's; fp32 matmuls without TF32),
-   trace, Table 3 row, ``simulate`` under every policy (the conduit
-   makespan must match the JAX package's to the bit);
+   at one shape beyond L2 for the IFP multiplier and the match line, and
+   for the INT8 GEMM at llama2_infer's and llm_train's shapes, forward and
+   backward;
+4. pipeline — jacobi1d, aes, xor_filter, heat3d, llama2_infer and
+   llm_train at paper scale through the package's entry points: numeric
+   run on the card (its outputs' digest must be the JAX package's; fp32
+   matmuls without TF32; llm_train's loss and the L1 norm of its SGD step
+   within a stated tolerance of the JAX package's, since two autodiff
+   frameworks sum in other orders), trace, Table 3 row, ``simulate`` under
+   every policy (the conduit makespan must match the JAX package's to the
+   bit), with the seconds each trace and its simulations take;
 5. replay — the offloaded ops again on the card through the kernels: the
    jacobi1d sweep (adds through the PuD bit-serial adder, x85 through the
    IFP shift-add multiplier, then through the bit-serial multiplier); the
@@ -47,9 +52,11 @@ last line:
    IFP, through the match-line kernel on xor_filter's built table;
    llama2_infer's prefill and decode with every 2-D ``x @ W`` in the §5.4
    INT8 lanes (per-tensor symmetric quantization, the INT8 GEMM,
-   dequantization).  Each must equal the numeric run (or, for search and
-   the GEMMs, the plain version) bit for bit, and the launch counters,
-   zeroed before each replay, must show the kernels ran;
+   dequantization); llm_train's step with every ``x @ W`` in the INT8
+   lanes forward and backward (``dX = q(dY) q(W)^T``, ``dW = q(X)^T
+   q(dY)``, each through the INT8 GEMM).  Each must equal the numeric run
+   (or, for search and the GEMMs, the plain version) bit for bit, and the
+   launch counters, zeroed before each replay, must show the kernels ran;
 6. serve — the LM serving path (``repro_torch.launch.serve``), whose
    prefill attends through the flash-attention kernel: reduced
    tinyllama-1.1b in fp32 on weights made here from a seed in the JAX
@@ -59,7 +66,11 @@ last line:
    tokens): the kernel must launch once per layer and batch, every call
    (recorded in a second run) must agree with the plain version, and the
    throughput, latency, prefill/decode wall time and peak memory are
-   printed beside the card's name and power limit.
+   printed beside the card's name and power limit;
+7. mix — multi-tenancy, which calls no kernel: ``simulate_mix`` of
+   jacobi1d's and heat3d's paper traces under conduit beside a Zipf host
+   I/O stream on a preconditioned drive with garbage collection; the
+   makespan, host I/O counts and FTL counters must be the JAX package's.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -98,10 +109,12 @@ from repro_torch.kernels import (_build, attention,  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch import sim as torch_sim  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
 from repro_torch.workloads import (WORKLOADS, _llama,  # noqa: E402
                                    get_trace, jacobi1d, llama2_infer,
-                                   make_inputs, run_numeric, xor_filter)
+                                   llm_train, make_inputs, run_numeric,
+                                   xor_filter)
 
 # the H100 SXM's HBM3 rate (NVIDIA data sheet); ops peaks are read off the
 # card itself in phase 1
@@ -219,7 +232,37 @@ REFERENCE = {
         "conduit_makespan_ns": 341937142.7739298,
         "numeric_sha256": "868e385395133e28feda427b671da1f2"
                           "af73db3a9b821e7aa595adcd0e665ad3"},
+    # no sha256: torch autograd and jax.value_and_grad sum in other orders,
+    # so the fp32 step is equal only within a tolerance (TRAIN_TOL); pinned
+    # are the loss and the L1 norm of the SGD step over every parameter
+    "llm_train": {
+        "row": {"vectorizable_pct": 99.3, "avg_reuse": 1.9, "low_pct": 0,
+                "medium_pct": 52, "high_pct": 48, "instrs": 69036},
+        "conduit_makespan_ns": 496250020.29490834,
+        "loss": 9.1482515335083,
+        "step_l1": 304.3739208225464},
 }
+# llm_train's tolerances against the JAX package's fp32 step: the loss
+# within 1e-5 absolute, and the L1 norm of the step (sum of |w' - w| in
+# float64) within 1e-5 relative.  On the CPU the port's step is 9.5e-7
+# (loss) and 5.1e-8 relative (step) from the JAX package's at paper scale
+# (tests/test_torch_train.py holds every parameter within 1e-6).
+TRAIN_TOL = {"loss": 1e-5, "step_l1_rtol": 1e-5}
+# The mix phase: jacobi1d and heat3d at paper beside a Zipf (0.95) host
+# I/O stream, 30 % reads, on a drive preconditioned to 90 % with greedy GC
+# (tests/_golden.py's gc_ftl scenario at the default FTL geometry and
+# 20000 requests).  MIX_REFERENCE is the JAX package's result;
+# tests/test_torch_chip_smoke.py recomputes it.
+MIX_WORKLOADS = ("jacobi1d", "heat3d")
+MIX_FTL = dict(prefill=0.9)
+MIX_IO = dict(rate_iops=250_000, read_fraction=0.3, n_requests=20_000,
+              zipf_theta=0.95)
+MIX_REFERENCE = {
+    "makespan_ns": 1263123120.1834362,
+    "tenant_makespans_ns": [317491726.8500267, 712119955.4764321],
+    "n_reads": 6128, "n_writes": 13872,
+    "host_pages_written": 13872, "gc_pages_copied": 3460,
+    "blocks_erased": 273, "gc_invocations": 59, "overflow_blocks": 180}
 # The JAX package's greedy tokens of the pinned serving run (reduced
 # tinyllama-1.1b in fp32 on jax_layout_params(cfg, seed=0), SERVE_PINNED,
 # the prompts of its serve(seed=0)): output_digest of each request's
@@ -669,6 +712,112 @@ def replay_llama2_infer(numeric, scale, device):
     return torch.cat(got), torch.cat(want)
 
 
+class Int8Linear(torch.autograd.Function):
+    """``x @ w`` in the INT8 lanes, forward and backward: the forward
+    quantizes ``x`` and ``w`` and multiplies them through ``gemm``; the
+    backward quantizes ``dY`` and makes ``dX = q(dY) q(W)^T`` and ``dW =
+    q(X)^T q(dY)`` through the same ``gemm``, each dequantized by its
+    operands' scales."""
+
+    @staticmethod
+    def forward(ctx, x, w, gemm):
+        qx, sx = quantize(x)
+        qw, sw = quantize(w)
+        ctx.save_for_backward(qx, qw, sx, sw)
+        ctx.gemm = gemm
+        return gemm(qx, qw).float() * (sx * sw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        qx, qw, sx, sw = ctx.saved_tensors
+        qdy, sdy = quantize(dy)
+        dx = ctx.gemm(qdy, qw.T).float() * (sdy * sw)
+        dw = ctx.gemm(qx.T, qdy).float() * (sx * sdy)
+        return dx, dw, None
+
+
+def step_l1(new_params, params) -> float:
+    """The L1 norm of an SGD step, sum of |w' - w| over every parameter,
+    in float64."""
+    return sum(float((a.double() - b.double()).abs().sum())
+               for a, b in zip(pytree.tree_leaves(new_params),
+                               pytree.tree_leaves(params)))
+
+
+def replay_llm_train(numeric, scale, device):
+    """``train_step`` with every ``x @ W`` through :class:`Int8Linear`:
+    3 INT8 GEMMs a product (one forward, two backward).  The two per-head
+    einsums stay fp32.  Each GEMM's output is held against the plain
+    version's on the same operands; the loss and the largest parameter
+    difference from the fp32 step are printed as information."""
+    p = llm_train.SCALES[scale]
+    params, tokens, labels, cos, sin, mask = make_inputs(
+        "llm_train", scale, device=device)
+    got, want = [], []
+
+    def gemm(a, b):
+        acc = ops.int8_matmul(a, b)
+        got.append(acc.reshape(-1))
+        want.append(ref.int8_matmul_plain(a, b).reshape(-1))
+        return acc
+
+    def mm(x, w):
+        return Int8Linear.apply(x, w, gemm)
+
+    def attention(x, layer):
+        seq, d = x.shape
+        heads = p["n_heads"]
+        q, k, v = (mm(x, layer[w]).reshape(seq, heads, d // heads)
+                   .permute(1, 0, 2) for w in ("wq", "wk", "wv"))
+        q, k = _llama.rope(q, cos, sin), _llama.rope(k, cos, sin)
+        scores = torch.einsum("hqd,hkd->hqk", q, k) / math.sqrt(d // heads)
+        probs = torch.softmax(torch.where(mask, scores, -1e9), dim=-1)
+        out = torch.einsum("hqk,hkd->hqd", probs, v)
+        return mm(out.permute(1, 0, 2).reshape(seq, d), layer["wo"])
+
+    def loss_fn(params):
+        x = params["emb"][tokens]
+        for layer in params["layers"]:
+            x = x + attention(_llama.rmsnorm(x, layer["ln1"]), layer)
+            h = _llama.rmsnorm(x, layer["ln2"])
+            x = x + mm(torch.nn.functional.silu(mm(h, layer["w1"]))
+                       * mm(h, layer["w3"]), layer["w2"])
+        logits = mm(_llama.rmsnorm(x, params["lnf"]), params["emb"].T)
+        gold = torch.take_along_dim(logits, labels[:, None], dim=-1)[:, 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [w.detach().requires_grad_() for w in leaves]
+    loss = loss_fn(pytree.tree_unflatten(leaves, spec))
+    grads = torch.autograd.grad(loss, leaves)
+    new = [(w - 0.01 * g).detach() for w, g in zip(leaves, grads)]
+    fp32_loss, fp32_new = numeric["llm_train"]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(new, pytree.tree_leaves(fp32_new)))
+    print(f"  llm_train INT8 lanes: loss {float(loss.detach())!r}, fp32 loss "
+          f"{float(fp32_loss)!r}; largest |w' - fp32 w'| {err!r} "
+          f"(information only)")
+    return torch.cat(got), torch.cat(want)
+
+
+def mix_counters(sim, traces) -> dict:
+    """``sim.simulate_mix`` of ``traces`` under conduit with MIX_IO's host
+    I/O stream and MIX_FTL's garbage-collected drive; ``sim`` is a
+    package's ``sim`` module, so the same run is made by either package."""
+    ftl = sim.FTLConfig(**MIX_FTL)
+    io = sim.HostIOStream(n_logical_pages=ftl.logical_pages(), **MIX_IO)
+    m = sim.simulate_mix(traces, "conduit", io_stream=io, ftl=ftl,
+                         compute_solo=False)
+    return {"makespan_ns": m.makespan_ns,
+            "tenant_makespans_ns": [t.makespan_ns for t in m.tenants],
+            "n_reads": m.host_io.n_reads, "n_writes": m.host_io.n_writes,
+            "host_pages_written": m.ftl.host_pages_written,
+            "gc_pages_copied": m.ftl.gc_pages_copied,
+            "blocks_erased": m.ftl.blocks_erased,
+            "gc_invocations": m.ftl.gc_invocations,
+            "overflow_blocks": m.ftl.overflow_blocks}
+
+
 def replay_plan(numeric, scale="paper", device="cuda"):
     """``(label, replay, launches it must make)`` for every replay, given
     the numeric run's outputs by workload."""
@@ -699,6 +848,10 @@ def replay_plan(numeric, scale="paper", device="cuda"):
          lambda: replay_llama2_infer(numeric, scale, device),
          counts(int8_matmul=(7 * llama["n_layers"] + 1)
                 * (1 + llama["decode_steps"]))),
+        ("llm_train int8 GEMMs",
+         lambda: replay_llm_train(numeric, scale, device),
+         counts(int8_matmul=3 * (7 * llm_train.SCALES[scale]["n_layers"]
+                                 + 1))),
     )
 
 
@@ -1155,6 +1308,19 @@ def main() -> int:
     timed += [("llama2_infer", "int8_matmul", shape, None)
               for shape in ((seq, d, llama["vocab"]),      # logits, record
                             (seq, d, d), (seq, d, d_ff), (seq, d_ff, d))]
+    # llm_train's step, every shape its replay launches (M, K, N): the
+    # forward x @ W (and the backward dY W^T at the same shapes but the
+    # logits'), dY emb, and the X^T dY of each weight (K = seq), the
+    # logits' as emb^T's gradient; then dY^T x, emb's gradient made
+    # directly (for comparison: the replay does not launch it)
+    train = llm_train.SCALES["paper"]
+    seq, d, d_ff, vocab = train["seq"], train["d"], train["d_ff"], \
+        train["vocab"]
+    timed += [("llm_train", "int8_matmul", shape, None)
+              for shape in ((seq, d, d), (seq, d, d_ff), (seq, d_ff, d),
+                            (seq, d, vocab), (seq, vocab, d),
+                            (d, seq, d), (d, seq, d_ff), (d_ff, seq, d),
+                            (d, seq, vocab), (vocab, seq, d))]
     clock_hz = max_sm_mhz * 1e6
     records = {}
     for label, name, shape, arg in timed:
@@ -1307,24 +1473,41 @@ def main() -> int:
         out = run_numeric(name, "paper")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        outs = out if isinstance(out, tuple) else (out,)
-        dtype = OUTPUT_DTYPES.get(name, torch.int32)
+        outs = pytree.tree_leaves(out)
+        dtype = (torch.float32 if name == "llm_train"
+                 else OUTPUT_DTYPES.get(name, torch.int32))
         if not all(o.is_cuda and o.dtype == dtype for o in outs):
             raise AssertionError(f"{name}: run_numeric gave "
                                  f"{[(str(o.device), o.dtype) for o in outs]}")
-        digest = output_digest([o.cpu().numpy() for o in outs])
-        print(f"{name}: run_numeric on the card in {seconds:.3f} s, outputs "
-              f"{[tuple(o.shape) for o in outs]}, sha256 {digest}")
-        if digest != want["numeric_sha256"]:
-            raise AssertionError(f"{name}: numeric outputs differ from the "
-                                 f"JAX package's ({digest})")
+        if name == "llm_train":
+            loss, new = out
+            l1 = step_l1(new, inputs[0])
+            print(f"{name}: run_numeric on the card in {seconds:.3f} s, loss "
+                  f"{float(loss)!r} (JAX {want['loss']!r}), step L1 {l1!r} "
+                  f"(JAX {want['step_l1']!r})")
+            if abs(float(loss) - want["loss"]) > TRAIN_TOL["loss"] or abs(
+                    l1 - want["step_l1"]) > TRAIN_TOL["step_l1_rtol"] * \
+                    want["step_l1"]:
+                raise AssertionError(f"{name}: the step is not within "
+                                     f"{TRAIN_TOL} of the JAX package's")
+        else:
+            digest = output_digest([o.cpu().numpy() for o in outs])
+            print(f"{name}: run_numeric on the card in {seconds:.3f} s, "
+                  f"outputs {[tuple(o.shape) for o in outs]}, sha256 "
+                  f"{digest}")
+            if digest != want["numeric_sha256"]:
+                raise AssertionError(f"{name}: numeric outputs differ from "
+                                     f"the JAX package's ({digest})")
         numeric[name] = out
+        t0 = time.perf_counter()
         trace = get_trace(name, "paper")
+        trace_s = time.perf_counter() - t0
         row = trace.characterize().as_row()
         print(f"{name} characterize:", json.dumps(row))
         if row != want["row"]:
             raise AssertionError(f"{name}: Table 3 row {row} != "
                                  f"{want['row']}")
+        t0 = time.perf_counter()
         for policy in POLICIES:
             r = simulate(trace, policy)
             mix = {k.value: round(100 * v, 1)
@@ -1337,6 +1520,9 @@ def main() -> int:
                 raise AssertionError(
                     f"{name}: conduit makespan {r.makespan_ns!r} != "
                     f"{want['conduit_makespan_ns']!r}")
+        print(f"{name}: trace {trace_s:.3f} s, {len(trace.instrs)} "
+              f"instructions, {len(trace.pages)} pages; {len(POLICIES)} "
+              f"simulations {time.perf_counter() - t0:.3f} s")
     if any(ops.launch_counts().values()):
         raise AssertionError("the pipeline launched a kernel: "
                              f"{ops.launch_counts()}")
@@ -1357,6 +1543,9 @@ def main() -> int:
                                  f"{want_counts}")
         for k, c in launched.items():
             records[k]["launches"] += c
+    # out of the serve's peak memory: llm_train's weights and step, its
+    # replay's GEMM outputs
+    del numeric, out, inputs, got, want
 
     # -- 6. the LM serving path ---------------------------------------------
     phase("serve")
@@ -1460,6 +1649,22 @@ def main() -> int:
     unused = [k for k, r in records.items() if r["launches"] == 0]
     if unused:
         raise AssertionError(f"no replay or serve launched {unused}")
+
+    # -- 7. multi-tenancy beside host I/O and garbage collection ------------
+    phase("mix")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = mix_counters(torch_sim, [get_trace(name, "paper")
+                                   for name in MIX_WORKLOADS])
+    print(f"simulate_mix {'+'.join(MIX_WORKLOADS)} conduit, host I/O "
+          f"{MIX_IO}, FTL {MIX_FTL}: {json.dumps(got)} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if got != MIX_REFERENCE:
+        raise AssertionError(f"simulate_mix differs from the JAX package's: "
+                             f"{MIX_REFERENCE}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the mix launched a kernel: "
+                             f"{ops.launch_counts()}")
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

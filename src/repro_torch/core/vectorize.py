@@ -50,6 +50,13 @@ in how the two frameworks capture a program are absorbed here:
 * ``unsqueeze`` (``x[None]``) is a view in ATen and a ``broadcast_in_dim``
   copy in JAX; ``torch.stack`` is one node, JAX's ``broadcast_in_dim`` of
   each operand and a ``concatenate``.
+* ``torch.func.grad_and_value(f)`` runs autograd's formulas, which give
+  another stream than ``jax.value_and_grad``'s linearise-and-transpose.
+  During capture the call is kept as one node (:func:`_grad_and_value_node`,
+  which still returns the real values); its loss ``f`` is captured again
+  and recorded as JAX records it (:mod:`repro_torch.core.autodiff`), then
+  lowered equation by equation as the jaxpr walk lowers an equation
+  (:meth:`_Vectorizer.eqn`).
 
 Partial vectorization (strip-mining, §4.3.1): array tails that do not fill
 a page become shorter-``vlen`` instructions.  Ops with no vector lowering
@@ -60,6 +67,7 @@ regions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import operator
@@ -70,6 +78,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import autodiff
 from repro_torch.core.isa import Location, VectorInstr
 from repro_torch.core.mapping import PageTable
 from repro_torch.core.trace import Trace, TraceBudgetExceeded, _compact
@@ -78,10 +87,11 @@ from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
 # -- primitive -> mnemonic table (the auto-vectorizer's pattern match) -------
 
 # The JAX package's tables (``repro/core/vectorize.py``), less the
-# primitives no ATen op below is named after.
+# primitives that neither an ATen op below nor a recorded gradient
+# (:mod:`repro_torch.core.autodiff`) is named after.
 _ELEMENTWISE = {
-    "add": "add", "sub": "sub", "mul": "mul",
-    "div": "div", "rem": "div", "pow": "mul",
+    "add": "add", "add_any": "add", "sub": "sub", "mul": "mul",
+    "div": "div", "rem": "div", "pow": "mul", "integer_pow": "mul",
     "neg": "sub", "sign": "cmp", "abs": "max",
     "exp": "exp", "exp2": "exp", "log": "exp", "log1p": "exp",
     "expm1": "exp", "tanh": "tanh", "logistic": "logistic",
@@ -111,7 +121,9 @@ _COPYLIKE = {
 }
 
 _SHUFFLE = {"transpose": "shuffle", "rev": "shuffle"}
-_FREE = {"reshape", "squeeze", "stop_gradient", "copy_p"}
+# ``split`` is free: its first output aliases the source's pages and every
+# later output takes fresh pages that no instruction writes (hazard R5)
+_FREE = {"reshape", "squeeze", "stop_gradient", "copy_p", "split"}
 
 # -- ATen op -> JAX-primitive name --------------------------------------------
 # Keyed by the op's overload packet name (``aten.add.Tensor`` -> "add").
@@ -238,6 +250,66 @@ class _KeepEinsum(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+# The ``torch.func.grad_and_value`` calls of the program being captured:
+# (loss function, pytree spec of its arguments, which flat leaves are
+# differentiated), indexed by the region number of each recorded node.
+_GRAD_REGIONS: List[Tuple[Callable, pytree.TreeSpec, List[bool]]] = []
+
+
+@torch.library.custom_op("repro_torch::grad_and_value", mutates_args=())
+def _grad_and_value_node(region: int, args: List[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+    """One ``torch.func.grad_and_value(func)(*args)``, recorded by
+    ``make_fx`` as one node: the loss, then the gradient of each
+    differentiated leaf.  It exists only inside a capture, on fake
+    tensors (:func:`_grad_and_value_fake`)."""
+    raise RuntimeError("repro_torch::grad_and_value runs only while "
+                       "vectorize captures a program")
+
+
+@_grad_and_value_node.register_fake
+def _grad_and_value_fake(region, args):
+    _, _, diff = _GRAD_REGIONS[region]
+    picked = [a for a, d in zip(args, diff) if d]
+    # grad_and_value differentiates a scalar loss
+    return [picked[0].new_empty(())] + [a.new_empty(a.shape) for a in picked]
+
+
+def _recording_grad_and_value(func, argnums=0, has_aux=False):
+    """``torch.func.grad_and_value`` while a program is captured: the call
+    becomes one :func:`_grad_and_value_node` that still returns the
+    gradients and the loss."""
+    if has_aux or not isinstance(argnums, int):
+        raise NotImplementedError(
+            "the tracer records grad_and_value with one int argnums and no "
+            "aux output")
+
+    def wrapper(*args):
+        flat, spec = pytree.tree_flatten(args)
+        diff = [i == argnums for i, a in enumerate(args)
+                for _ in pytree.tree_leaves(a)]
+        _GRAD_REGIONS.append((func, spec, diff))
+        outs = _grad_and_value_node(len(_GRAD_REGIONS) - 1, flat)
+        grads = pytree.tree_unflatten(
+            list(outs[1:]), pytree.tree_structure(args[argnums]))
+        return grads, outs[0]
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def _recording_gradients():
+    """Bind ``torch.func.grad_and_value`` to the recording wrapper while a
+    program is captured; yields the list of regions it records."""
+    saved = torch.func.grad_and_value
+    _GRAD_REGIONS.clear()
+    torch.func.grad_and_value = _recording_grad_and_value
+    try:
+        yield _GRAD_REGIONS
+    finally:
+        torch.func.grad_and_value = saved
+
+
 @dataclasses.dataclass(frozen=True)
 class _Aval:
     """The abstract value of a node: what the page math reads of it."""
@@ -307,8 +379,10 @@ def _while_operands(node) -> list:
 
 class _Vectorizer:
     def __init__(self, spec: SSDSpec, elem_bytes: int, quantize: bool,
-                 max_instrs: int, matmul_k_steps: int = 16):
+                 max_instrs: int, matmul_k_steps: int = 16,
+                 regions: Sequence = ()):
         self.spec = spec
+        self.regions = regions
         self.page_bytes = spec.page_size
         self.elem_bytes = elem_bytes
         self.quantize = quantize
@@ -421,7 +495,8 @@ class _Vectorizer:
 
         lower = {"slice": self._slice, "select": self._select,
                  "dot_general": self._dot_general, "mean": self._mean,
-                 "softmax": self._softmax, "stack": self._stack}.get(prim)
+                 "softmax": self._softmax, "stack": self._stack,
+                 "grad_and_value": self._grad_and_value}.get(prim)
         if lower is not None:
             lower(node, env)
             return
@@ -693,10 +768,21 @@ class _Vectorizer:
             k = a.meta["val"].shape[-1]
             transpose = False
         out_aval = self.aval(node)
+        out = self._emit_dot(self.pages_for(env, a) or [],
+                             self.pages_for(env, b) or [], out_aval, k)
+        if transpose:
+            shuffled = self._alloc(out_aval, "transpose")
+            self.emit_map(_SHUFFLE["transpose"], [out], shuffled, out_aval,
+                          "transpose")
+            out = shuffled
+        env[node] = out
+
+    def _emit_dot(self, a_pages: List[int], b_pages: List[int],
+                  out_aval: _Aval, k: int) -> List[int]:
+        """The mul + add chains of one matrix product with contraction
+        length ``k``, as the JAX package's ``_dot_general`` emits them."""
         ebytes = self._ebytes(out_aval)
         lanes = self._lanes(ebytes)
-        a_pages = self.pages_for(env, a) or []
-        b_pages = self.pages_for(env, b) or []
         out = self.pages.alloc_array(out_aval.size * ebytes, "dot")
         bp = max(1, len(b_pages))
         ap = max(1, len(a_pages))
@@ -715,12 +801,95 @@ class _Vectorizer:
                 self.emit("mul", [a_pid, b_pid], tmp, vlen, ebytes,
                           "dot_general")
                 self.emit("add", [tmp, dst], dst, vlen, ebytes, "dot_general")
-        if transpose:
-            shuffled = self._alloc(out_aval, "transpose")
-            self.emit_map(_SHUFFLE["transpose"], [out], shuffled, out_aval,
-                          "transpose")
-            out = shuffled
-        env[node] = out
+        return out
+
+    # -- a recorded gradient --------------------------------------------------
+
+    def _grad_and_value(self, node, env: Dict) -> None:
+        """A ``torch.func.grad_and_value`` call: capture the loss's
+        forward graph, record what ``jax.value_and_grad`` records for it
+        (:func:`~repro_torch.core.autodiff.value_and_grad_eqns`) and lower
+        those equations; the node's outputs are the loss and the
+        gradients."""
+        func, spec, diff = self.regions[node.args[0]]
+        flat = node.args[1]
+        metas = [torch.empty(a.meta["val"].shape, dtype=a.meta["val"].dtype,
+                             device="meta") for a in flat]
+
+        def loss_fn(*leaves):
+            return func(*pytree.tree_unflatten(list(leaves), spec))
+
+        with _KeepEinsum():
+            gm = make_fx(loss_fn, tracing_mode="fake",
+                         _allow_non_fake_inputs=True)(*metas)
+        eqns, ins, outs = autodiff.value_and_grad_eqns(gm, diff)
+        sub = {var: self.pages_for(env, a) for var, a in zip(ins, flat)}
+        for e in eqns:
+            self.eqn(e, sub)
+        env[node] = [sub[v] for v in outs]
+
+    def eqn(self, e: "autodiff.Eqn", env: Dict) -> None:
+        """Lower one recorded equation as the JAX package's jaxpr walk
+        lowers it."""
+        prim = e.prim
+        ins = [None if isinstance(a, autodiff.Lit) else env[a]
+               for a in e.ins]
+        out_aval = _Aval(e.outs[0].size, e.outs[0].itemsize)
+
+        if prim == "dot_general":
+            (contract, _), _ = e.params["dimension_numbers"]
+            k = math.prod(e.ins[0].shape[d] for d in contract) or 1
+            env[e.outs[0]] = self._emit_dot(ins[0] or [], ins[1] or [],
+                                            out_aval, k)
+            return
+
+        if prim in _FREE:
+            src = ins[0]
+            need = self._npages(out_aval)
+            if src is None or len(src) < need:
+                out = self._alloc(out_aval, prim)
+                self.emit_map("copy", [src], out, out_aval, prim)
+                env[e.outs[0]] = out
+            else:
+                env[e.outs[0]] = src[:need]    # aliasing, no data movement
+            for extra in e.outs[1:]:           # fresh pages, no instruction
+                env[extra] = self._alloc(_Aval(extra.size, extra.itemsize),
+                                         prim)
+            return
+
+        if prim == "slice":
+            src = e.ins[0]
+            env[e.outs[0]] = self._slice_pages(_SliceView(
+                base_pages=ins[0], base_shape=src.shape,
+                base_aval=_Aval(src.size, src.itemsize),
+                starts=e.params["start_indices"],
+                limits=e.params["limit_indices"], last_dim=0))
+            return
+
+        if prim in _ELEMENTWISE:
+            out = self._alloc(out_aval, prim)
+            self.emit_map(_ELEMENTWISE[prim], ins, out, out_aval, prim)
+            env[e.outs[0]] = out
+            return
+
+        if prim in _REDUCTIONS:
+            src = e.ins[0]
+            env[e.outs[0]] = self._reduce(
+                ins[0], _Aval(src.size, src.itemsize), out_aval,
+                _REDUCTIONS[prim])
+            return
+
+        table = (_COPYLIKE if prim in _COPYLIKE else _SHUFFLE
+                 if prim in _SHUFFLE else None)
+        op, vectorizable = (("scalar", False) if table is None
+                            else (table[prim], True))
+        # a nested ``jit`` (CONTROL region: per-page scalar execution on
+        # ISP), or a copy or shuffle, one strip per output
+        for ov in e.outs:
+            aval = _Aval(ov.size, ov.itemsize)
+            out = self._alloc(aval, prim)
+            self.emit_map(op, ins, out, aval, prim, vectorizable=vectorizable)
+            env[ov] = out
 
 
 def vectorize(fn: Callable, *example_args,
@@ -746,10 +915,12 @@ def vectorize(fn: Callable, *example_args,
     no counted-loop construct to unroll yet.
     """
     del scan_unroll_limit
-    with _KeepEinsum():
+    with _KeepEinsum(), _recording_gradients() as regions:
         gm = make_fx(fn, tracing_mode="fake",
                      _allow_non_fake_inputs=True)(*example_args)
-    v = _Vectorizer(spec, elem_bytes, quantize, max_instrs, matmul_k_steps)
+        regions = list(regions)
+    v = _Vectorizer(spec, elem_bytes, quantize, max_instrs, matmul_k_steps,
+                    regions)
     env: Dict = {}
     input_pages: Dict[str, List[int]] = {}
     nodes = list(gm.graph.nodes)

@@ -4,8 +4,8 @@ Each workload module exposes ``make_fn(scale)`` (the PyTorch program),
 ``make_inputs(scale, seed, device)`` (its inputs, drawn from numpy's
 ``default_rng(seed)`` exactly as the JAX package draws them), ``SIM``
 (simulator pressure knobs) and ``META`` (the paper's Table 3
-characterization for comparison).  The port carries aes, xor_filter,
-heat3d, jacobi1d and llama2_infer; llm_train follows in a later slice.
+characterization for comparison).  The port carries all six: aes,
+xor_filter, heat3d, jacobi1d, llama2_infer and llm_train.
 
 ``get_trace`` runs Conduit's compile-time preprocessing on the workload;
 ``sim_config_for`` derives the per-workload capacity pressure (the paper
@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.hw.ssd_spec import DEFAULT_SSD, SSDSpec
 from repro_torch.sim.machine import SimConfig
 from repro_torch.workloads import (aes, heat3d, jacobi1d, llama2_infer,
-                                  xor_filter)
+                                  llm_train, xor_filter)
 
 WORKLOADS = {
     "aes": aes,
@@ -36,7 +36,12 @@ WORKLOADS = {
     "heat3d": heat3d,
     "jacobi1d": jacobi1d,
     "llama2_infer": llama2_infer,
+    "llm_train": llm_train,
 }
+
+# Paper presentation order (Fig 7a/8/9 x-axis).
+PAPER_ORDER = ("aes", "xor_filter", "heat3d", "jacobi1d", "llama2_infer",
+               "llm_train")
 
 
 def make_inputs(name: str, scale: str = "paper", seed: int = 0,

@@ -11,11 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from repro.sim import simulate as repro_simulate  # noqa: E402
 from repro.workloads import get_trace as repro_get_trace  # noqa: E402
 from repro.workloads import run_numeric as repro_run_numeric  # noqa: E402
+from repro import workloads as repro_workloads  # noqa: E402
 from repro_torch import workloads  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -34,9 +37,61 @@ def test_reference_constants_are_the_jax_packages(name):
     assert (repro_simulate(trace, "conduit").makespan_ns
             == want["conduit_makespan_ns"])
     out = repro_run_numeric(name, "paper")
+    if name == "llm_train":               # a tolerance, not a digest
+        loss, new = out
+        params = repro_workloads.WORKLOADS[name].make_inputs("paper")[0]
+        l1 = sum(float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).sum())
+                 for a, b in zip(jax.tree_util.tree_leaves(new),
+                                 jax.tree_util.tree_leaves(params)))
+        tol = chip_smoke.TRAIN_TOL
+        assert abs(float(loss) - want["loss"]) <= tol["loss"]
+        assert abs(l1 - want["step_l1"]) <= tol["step_l1_rtol"] * l1
+        return
     outs = out if isinstance(out, tuple) else (out,)
     assert (chip_smoke.output_digest([np.asarray(o) for o in outs])
             == want["numeric_sha256"])
+
+
+def test_llm_train_step_on_the_cpu_is_within_the_smoke_tolerance():
+    """Phase 4's check of llm_train, made on the port's CPU run."""
+    inputs = workloads.make_inputs("llm_train", "paper", device="cpu")
+    loss, new = workloads.run_numeric("llm_train", "paper", device="cpu")
+    want, tol = chip_smoke.REFERENCE["llm_train"], chip_smoke.TRAIN_TOL
+    assert abs(float(loss) - want["loss"]) <= tol["loss"]
+    l1 = chip_smoke.step_l1(new, inputs[0])
+    assert abs(l1 - want["step_l1"]) <= tol["step_l1_rtol"] * want["step_l1"]
+
+
+def test_llm_train_pipeline_on_the_cpu():
+    """Phase 4's trace checks of llm_train, made on the port's own trace:
+    the Table 3 row and the conduit makespan of the JAX package's."""
+    want = chip_smoke.REFERENCE["llm_train"]
+    trace = workloads.get_trace("llm_train", "paper", device="cpu")
+    assert trace.characterize().as_row() == want["row"]
+    assert (chip_smoke.simulate(trace, "conduit").makespan_ns
+            == want["conduit_makespan_ns"])
+
+
+def test_mix_reference_is_the_jax_packages():
+    from repro import sim as repro_sim
+    traces = [repro_get_trace(n, "paper") for n in chip_smoke.MIX_WORKLOADS]
+    assert (chip_smoke.mix_counters(repro_sim, traces)
+            == chip_smoke.MIX_REFERENCE)
+
+
+def test_mix_phase_on_the_ports_traces():
+    """As the smoke runs it: on the cached traces that phase 4 has already
+    simulated (a run resets the page table it starts from)."""
+    traces = [workloads.get_trace(n, "paper", device="cpu")
+              for n in chip_smoke.MIX_WORKLOADS]
+    for tr in traces:
+        chip_smoke.simulate(tr, "bw")
+    before = ops.launch_counts()
+    got = chip_smoke.mix_counters(chip_smoke.torch_sim, traces)
+    assert got == chip_smoke.MIX_REFERENCE
+    assert ops.launch_counts() == before
+    assert got["gc_invocations"] > 0 and got["blocks_erased"] > 0
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +110,35 @@ def test_replay_equals_the_numeric_run_on_the_cpu(label, tiny_numeric):
     assert torch.equal(got, want)
     assert ops.launch_counts() == before           # plain versions only
     assert any(want_counts.values())
+
+
+def test_llm_train_replay_makes_three_gemms_a_product(tiny_numeric,
+                                                      monkeypatch):
+    """On the CPU the wrapper takes the plain version and counts nothing;
+    the calls themselves are counted here: one forward and two backward
+    GEMMs for each of the 7 n_layers + 1 products, at their shapes."""
+    (replay, want_counts), = [
+        (r, c) for lab, r, c in chip_smoke.replay_plan(
+            tiny_numeric, "tiny", "cpu") if lab == "llm_train int8 GEMMs"]
+    shapes = []
+    gemm = ops.int8_matmul
+
+    def counting(a, b):
+        shapes.append((tuple(a.shape), tuple(b.shape)))
+        return gemm(a, b)
+
+    monkeypatch.setattr(ops, "int8_matmul", counting)
+    got, want = replay()
+    assert torch.equal(got, want)
+    p = workloads.WORKLOADS["llm_train"].SCALES["tiny"]
+    assert len(shapes) == want_counts["int8_matmul"] == 3 * (
+        7 * p["n_layers"] + 1)
+    s, d, f, v = p["seq"], p["d"], p["d_ff"], p["vocab"]
+    # (M, K, N): the forward and dX shapes, dY emb, and the X^T dY of each
+    # weight, the logits' as emb^T's gradient (phase 3 times these)
+    assert {(a[0], a[1], b[1]) for a, b in shapes} == {
+        (s, d, d), (s, d, f), (s, f, d), (s, d, v), (s, v, d),
+        (d, s, d), (d, s, f), (f, s, d), (d, s, v)}
 
 
 # -- phase 6: the LM serving path ---------------------------------------------

@@ -170,8 +170,21 @@ def both(name, **kw):
     return got, want
 
 
+def first_difference(got, want) -> str:
+    """The first instruction where two traces' streams differ, with its
+    tag (the primitive that emitted it) on both sides; "" if none."""
+    a, b = stream(got), stream(want)
+    for k, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return (f"instruction {k}: port {x} ({got.instrs[k].tag}), "
+                    f"reference {y} ({want.instrs[k].tag})")
+    if len(a) != len(b):
+        return f"lengths {len(a)} and {len(b)}"
+    return ""
+
+
 def assert_same_trace(got, want):
-    assert stream(got) == stream(want)
+    assert stream(got) == stream(want), first_difference(got, want)
     assert page_table(got) == page_table(want)
     assert got.input_pages == want.input_pages
     assert got.output_pages == want.output_pages
@@ -233,11 +246,12 @@ def test_jacobi1d_trace_matches_repro(scale):
 
 @pytest.mark.parametrize("scale", ["tiny", "paper"])
 @pytest.mark.parametrize("name", ["aes", "xor_filter", "heat3d",
-                                  "llama2_infer"])
+                                  "llama2_infer", "llm_train"])
 def test_workload_trace_matches_repro(name, scale):
     """while_loop, gathers, ``%``, ``where``, ``x[r]`` with a rank
     broadcast and 3-D ``pad``; matrix products, einsums, softmax, RMSNorm,
-    ``logits[-1]`` and the decode feed, on the paper's own programs."""
+    ``logits[-1]`` and the decode feed; a gradient recorded as
+    ``jax.value_and_grad`` records it, on the paper's own programs."""
     assert_same_workload_trace(name, scale)
 
 
