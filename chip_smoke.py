@@ -70,7 +70,15 @@ last line:
 7. mix — multi-tenancy, which calls no kernel: ``simulate_mix`` of
    jacobi1d's and heat3d's paper traces under conduit beside a Zipf host
    I/O stream on a preconditioned drive with garbage collection; the
-   makespan, host I/O counts and FTL counters must be the JAX package's.
+   makespan, host I/O counts and FTL counters must be the JAX package's;
+8. open-loop — serving, which calls no kernel either, on the same paper
+   traces: ``simulate_serving`` under conduit at a rate under and one over
+   its saturation with the flight recorder on and its analysis report;
+   ``find_saturation`` of conduit, bw and dm at a 50 ms p99 SLO, and
+   ``batched_find_saturation`` of the three, which must equal them; a
+   three-drive ``simulate_fleet`` with a collecting drive, its merged
+   trace exported, validated and blamed.  Every result's digest must be
+   the JAX package's, with the seconds each run takes.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -80,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import enum
 import hashlib
 import itertools
 import json
@@ -90,7 +99,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -263,6 +274,49 @@ MIX_REFERENCE = {
     "n_reads": 6128, "n_writes": 13872,
     "host_pages_written": 13872, "gc_pages_copied": 3460,
     "blocks_erased": 273, "gc_invocations": 59, "overflow_blocks": 180}
+# The open-loop phase: a session catalog of jacobi1d and heat3d at paper
+# (weights 3:1, catalog seed 5), Poisson sessions (64, seed 9).
+# simulate_serving under conduit at a rate under its saturation and one
+# over it, with the flight recorder on for the analysis report;
+# find_saturation (and batched_find_saturation, which must equal it) at a
+# 50 ms p99 SLO for three policies; simulate_fleet as
+# examples/fleet_serving.py configures it (3 drives, hash placement, two
+# replicas, drive 0 collecting garbage under write churn) with recorders on.
+# OPEN_LOOP_REFERENCE holds the JAX package's results as digests of their
+# plain data (result_digest); tests/test_torch_chip_smoke.py recomputes it.
+OPEN_LOOP_CATALOG = (("jacobi1d", 3.0), ("heat3d", 1.0))
+OPEN_LOOP_CATALOG_SEED = 5
+OPEN_LOOP_SESSIONS = 64
+OPEN_LOOP_SEED = 9
+OPEN_LOOP_RATES = (10.0, 40.0)               # sessions/s
+OPEN_LOOP_POLICIES = ("conduit", "bw", "dm")
+OPEN_LOOP_SEARCH = dict(slo_p99_ns=50e6, rate_lo=1.0, rate_hi=200.0,
+                        iters=6)
+OPEN_LOOP_TELEMETRY = dict(spans=True, audit=True, interval_ns=1e6)
+# the fleet's recorders keep the spans fleet_blame reads, not the audit
+OPEN_LOOP_FLEET_TELEMETRY = dict(spans=True, audit=False, interval_ns=1e6)
+OPEN_LOOP_FLEET_RATE = 20.0                  # sessions/s across the fleet
+OPEN_LOOP_FLEET_CHURN = 1200                 # drive 0's host writes
+ANALYSIS_GIT_SHA = "chip-smoke"   # the report's git_sha, fixed for its digest
+OPEN_LOOP_REFERENCE = {
+    "serving@10":
+        "e2621fdb34bf9a4336bbe53585bf26a92de30e9348d1f3967418e9064afdea74",
+    "analysis@10":
+        "2b04296f673c7a6558ee4eee24fab9319f5e0af5952a01b231312c545c97b216",
+    "serving@40":
+        "d6aff4d0608d5f98022aa4e71b736df0f6f2fc36391874d83b364d257b1c6292",
+    "analysis@40":
+        "de9e9c50f3654473d95be959b82400ed74d1e1359e4952571b34420e52128bca",
+    "saturation/conduit":
+        "def3309af95dfc5cc4b584b5eb00afe8f97ce6b82d16747fceef0c6af9518550",
+    "saturation/bw":
+        "4cf44a29944b62e27ec8ed3a9159156ec114b0924b3160cdcaadb23fdc95968e",
+    "saturation/dm":
+        "6e80b97b269ef7d5ca16de9150c74edfc8681c28d7698521be17f7cd0e6cce82",
+    "fleet":
+        "802cdb698a15973b1912850ed058a424c53e27f0a2b497f03237919a924d9e63",
+    "fleet_blame":
+        "dc62132113ab42ab52f1efabaeed2b466783d317f5d56eda19b1971542f45299"}
 # The JAX package's greedy tokens of the pinned serving run (reduced
 # tinyllama-1.1b in fp32 on jax_layout_params(cfg, seed=0), SERVE_PINNED,
 # the prompts of its serve(seed=0)): output_digest of each request's
@@ -816,6 +870,139 @@ def mix_counters(sim, traces) -> dict:
             "blocks_erased": m.ftl.blocks_erased,
             "gc_invocations": m.ftl.gc_invocations,
             "overflow_blocks": m.ftl.overflow_blocks}
+
+
+def plain(x):
+    """A simulator result as JSON-able plain data, by field name, with every
+    float as its exact repr; the same for either package's classes."""
+    if x is None or isinstance(x, (bool, int, str)):
+        return x
+    if isinstance(x, float):
+        return repr(x)
+    if isinstance(x, enum.Enum):
+        return plain(x.value)
+    if dataclasses.is_dataclass(x):
+        return {"__type__": type(x).__name__,
+                **{f.name: plain(getattr(x, f.name))
+                   for f in dataclasses.fields(x)}}
+    if isinstance(x, dict):
+        return [[plain(k), plain(v)] for k, v in x.items()]
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if hasattr(x, "chrome_trace"):                 # a flight recorder
+        text = json.dumps(x.chrome_trace())        # floats as exact reprs
+        return {"__type__": type(x).__name__,
+                "sha256": hashlib.sha256(text.encode()).hexdigest()}
+    raise TypeError(f"no plain form for {type(x).__name__}")
+
+
+def result_digest(x) -> str:
+    return hashlib.sha256(json.dumps(plain(x)).encode()).hexdigest()
+
+
+def open_loop_steps(sim, traces, n_sessions=OPEN_LOOP_SESSIONS,
+                    fleet_churn=OPEN_LOOP_FLEET_CHURN):
+    """The open-loop phase through a package's ``sim`` module on
+    ``traces`` (workload name -> trace): ``(label, run)`` pairs in order,
+    each ``run()`` returning ``(line, digests)`` where ``digests`` maps a
+    result's key in OPEN_LOOP_REFERENCE to its result_digest.  The batched
+    search runs after the scalar ones and fails unless it equals them.
+    The tests cut ``n_sessions`` and the straggler's ``fleet_churn``."""
+    catalog = sim.SessionCatalog(
+        [sim.CatalogEntry(name, traces[name], weight=w)
+         for name, w in OPEN_LOOP_CATALOG], seed=OPEN_LOOP_CATALOG_SEED)
+    scalar = {}
+
+    def serving(rate):
+        arr = sim.PoissonArrivals(rate_per_sec=rate, n_sessions=n_sessions,
+                                  seed=OPEN_LOOP_SEED)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # Little's-law notes
+            r = sim.simulate_serving(
+                catalog, arr, "conduit",
+                serving=sim.ServingConfig(keep_session_results=False),
+                telemetry=sim.TelemetryConfig(**OPEN_LOOP_TELEMETRY))
+        report = r.analysis(git_sha=ANALYSIS_GIT_SHA)
+        share = report["blame"]["p99_cohort"]["share"]
+        line = (f"completed {r.n_completed}, rejected {r.n_rejected}, "
+                f"p50 {r.p(50)!r} ns, p99 {r.p(99)!r} ns, "
+                f"{r.completed_rate_per_sec!r} sessions/s; the p99 cohort's "
+                f"largest blame share is {max(share, key=share.get)!r}")
+        return line, {f"serving@{rate:g}": result_digest(r),
+                      f"analysis@{rate:g}": result_digest(report)}
+
+    def saturation(policy):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sat = sim.find_saturation(catalog, policy,
+                                      n_sessions=n_sessions,
+                                      seed=OPEN_LOOP_SEED,
+                                      **OPEN_LOOP_SEARCH)
+        scalar[policy] = sat
+        line = (f"{sat.rate_per_sec!r} sessions/s, bracket "
+                f"{sat.bracket!r}, {len(sat.probes)} probes")
+        return line, {f"saturation/{policy}": result_digest(sat)}
+
+    def batched():
+        lanes = [sim.SweepLane(policy=p, seed=OPEN_LOOP_SEED,
+                               n_sessions=n_sessions)
+                 for p in OPEN_LOOP_POLICIES]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = sim.batched_find_saturation(catalog, lanes,
+                                              **OPEN_LOOP_SEARCH)
+        for p, sat in zip(OPEN_LOOP_POLICIES, got):
+            if plain(sat) != plain(scalar[p]):
+                raise AssertionError(f"batched_find_saturation {p} differs "
+                                     f"from find_saturation")
+        return (f"{[s.rate_per_sec for s in got]!r} sessions/s, equal to "
+                f"the scalar searches"), {}
+
+    def fleet():
+        ftl = sim.FTLConfig(blocks_per_die=4, pages_per_block=8,
+                            op_ratio=0.28, prefill=0.9, gc_suspend=True,
+                            gc_reserve_blocks=1)
+        churn = sim.HostIOStream(rate_iops=150_000, read_fraction=0.1,
+                                 n_requests=fleet_churn, zipf_theta=0.9,
+                                 n_logical_pages=ftl.logical_pages(),
+                                 seed=11)
+        cfg = sim.FleetConfig(
+            n_drives=3, placement="hash", replication=2,
+            profiles=((0, sim.DriveProfile(io_stream=churn, ftl=ftl)),))
+        res = sim.simulate_fleet(
+            catalog, sim.PoissonArrivals(rate_per_sec=OPEN_LOOP_FLEET_RATE,
+                                         n_sessions=n_sessions,
+                                         seed=OPEN_LOOP_SEED),
+            "conduit",
+            serving=sim.ServingConfig(keep_session_results=False,
+                                      warmup_ns=1e5, cooldown_ns=1e5,
+                                      little_law_warn_tol=float("inf")),
+            fleet=cfg,
+            telemetry=sim.TelemetryConfig(**OPEN_LOOP_FLEET_TELEMETRY))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "fleet_trace.json")
+            sim.export_fleet_trace(res.telemetry, path)
+            with open(path) as f:
+                trace = json.load(f)
+        errors = sim.validate_trace(trace)
+        if errors:
+            raise AssertionError(f"merged fleet trace: {errors[:3]}")
+        blame = sim.fleet_blame(trace)
+        s = blame["straggler"]
+        line = (f"fleet p99 {res.p(99)!r} ns, per drive "
+                f"{res.per_drive_p(99)!r}; trace valid; straggler drive "
+                f"{s['drive']} ({s['tail_share']!r} of the tail, "
+                f"{s['dominant_component']!r})")
+        return line, {"fleet": result_digest(res),
+                      "fleet_blame": result_digest(blame)}
+
+    steps = [(f"simulate_serving conduit @ {r:g}/s",
+              lambda r=r: serving(r)) for r in OPEN_LOOP_RATES]
+    steps += [(f"find_saturation {p}", lambda p=p: saturation(p))
+              for p in OPEN_LOOP_POLICIES]
+    steps.append(("batched_find_saturation", batched))
+    steps.append(("simulate_fleet", fleet))
+    return steps
 
 
 def replay_plan(numeric, scale="paper", device="cuda"):
@@ -1664,6 +1851,25 @@ def main() -> int:
                              f"{MIX_REFERENCE}")
     if any(ops.launch_counts().values()):
         raise AssertionError(f"the mix launched a kernel: "
+                             f"{ops.launch_counts()}")
+
+    # -- 8. open-loop serving, saturation, fleets and trace analysis --------
+    phase("open-loop")
+    ops.reset_launch_counts()
+    traces = {name: get_trace(name, "paper") for name, _ in OPEN_LOOP_CATALOG}
+    t_phase = time.perf_counter()
+    for label, run in open_loop_steps(torch_sim, traces):
+        t0 = time.perf_counter()
+        line, digests = run()
+        print(f"{label}: {line} in {time.perf_counter() - t0:.3f} s")
+        for key, digest in digests.items():
+            print(f"  {key} sha256 {digest}")
+            if digest != OPEN_LOOP_REFERENCE[key]:
+                raise AssertionError(f"{key} differs from the JAX "
+                                     f"package's")
+    print(f"open-loop phase in {time.perf_counter() - t_phase:.3f} s")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the open-loop phase launched a kernel: "
                              f"{ops.launch_counts()}")
 
     print(json.dumps({"kernels": list(records.values())}))

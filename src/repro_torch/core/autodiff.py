@@ -52,6 +52,17 @@ import numpy as np
 import torch
 
 
+# jax with x64 off, as the reference runs, has no 64-bit array: int64 and
+# float64 become 32-bit, complex128 becomes complex64
+_X32_ITEMSIZE = {torch.int64: 4, torch.uint64: 4, torch.float64: 4,
+                 torch.complex128: 8}
+
+
+def x32_itemsize(dtype: torch.dtype) -> int:
+    """``dtype``'s element width as the reference's jaxpr records it."""
+    return _X32_ITEMSIZE.get(dtype, dtype.itemsize)
+
+
 class Var:
     """One array of the recorded program: its shape and dtype."""
 
@@ -67,7 +78,7 @@ class Var:
 
     @property
     def itemsize(self) -> int:
-        return self.dtype.itemsize
+        return x32_itemsize(self.dtype)
 
     def __repr__(self) -> str:
         return f"Var{list(self.shape)}:{self.dtype}"

@@ -320,8 +320,10 @@ class _Aval:
 
 def _aval(val) -> _Aval:
     if isinstance(val, torch.Tensor):
-        return _Aval(val.numel(), val.element_size())
-    return _Aval(1, 8)                         # a Python scalar
+        return _Aval(val.numel(), autodiff.x32_itemsize(val.dtype))
+    # a Python or symbolic scalar (a while_loop's int carry): jax's
+    # weak-typed int32 or float32
+    return _Aval(1, 4)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -448,9 +448,8 @@ class ServingResult:
             raise ValueError(
                 "no flight recorder on this result: rerun with "
                 "telemetry=TelemetryConfig(...) to enable analysis")
-        raise NotImplementedError(
-            "repro_torch.sim.analysis is not ported yet; it comes with the "
-            "serving/fleet/analysis slice of the port (ROADMAP queue 1)")
+        from repro_torch.sim.analysis import build_report
+        return build_report(self.telemetry, git_sha=git_sha)
 
     def op_p(self, pct: float) -> float:
         """Per-op latency percentile over the measured window."""
@@ -758,9 +757,8 @@ class MixResult:
             raise ValueError(
                 "no flight recorder on this result: rerun with "
                 "telemetry=TelemetryConfig(...) to enable analysis")
-        raise NotImplementedError(
-            "repro_torch.sim.analysis is not ported yet; it comes with the "
-            "serving/fleet/analysis slice of the port (ROADMAP queue 1)")
+        from repro_torch.sim.analysis import build_report
+        return build_report(self.telemetry, git_sha=git_sha)
 
     @property
     def slowdowns(self) -> Dict[str, float]:

@@ -135,11 +135,9 @@ def both_grads(name, **kw):
 
 
 # unquantized, element widths count: the port's labels are int64
-# (take_along_dim's index type) where the reference's are int32, so the
-# program that reads them is held in the INT8 lanes only
+# (take_along_dim's index type) and take the reference's int32 lanes
 @pytest.mark.parametrize("name,quantize", [
-    (name, q) for q in (True, False) for name in PROGRAMS
-    if q or name != "embedding_logits"])
+    (name, q) for q in (True, False) for name in PROGRAMS])
 def test_gradient_program_matches_repro(name, quantize):
     got, want = both_grads(name, quantize=quantize)
     assert_same_trace(got, want)

@@ -94,6 +94,67 @@ def test_mix_phase_on_the_ports_traces():
     assert got["gc_invocations"] > 0 and got["blocks_erased"] > 0
 
 
+# -- phase 8: open-loop serving, saturation, fleets, analysis -----------------
+
+def _open_loop_steps(sim_module, port, **reduced):
+    names = [name for name, _ in chip_smoke.OPEN_LOOP_CATALOG]
+    scale = "tiny" if reduced else "paper"
+    if port:
+        traces = {n: workloads.get_trace(n, scale, device="cpu")
+                  for n in names}
+    else:
+        traces = {n: repro_get_trace(n, scale) for n in names}
+    return chip_smoke.open_loop_steps(sim_module, traces, **reduced)
+
+
+@pytest.fixture(scope="module")
+def open_loop_reference():
+    """The JAX package's digests for every pinned open-loop result (the
+    batched search is held to the scalar ones on the card, not pinned)."""
+    from repro import sim as repro_sim
+    got = {}
+    for label, run in _open_loop_steps(repro_sim, port=False):
+        if label != "batched_find_saturation":
+            got.update(run()[1])
+    return got
+
+
+def test_open_loop_reference_is_the_jax_packages(open_loop_reference):
+    assert open_loop_reference == chip_smoke.OPEN_LOOP_REFERENCE
+
+
+def test_open_loop_phase_rehearsed_on_the_cpu():
+    """Phase 8 at a reduced size (tiny traces, 16 sessions, a shorter
+    churn): every result the port makes on its own traces has the digest
+    the JAX package's run has on its own, the batched search equals the
+    scalar ones, and no kernel is called."""
+    from repro import sim as repro_sim
+    reduced = dict(n_sessions=16, fleet_churn=300)
+    before = ops.launch_counts()
+    got, want = {}, {}
+    for label, run in _open_loop_steps(chip_smoke.torch_sim, True,
+                                       **reduced):
+        got.update(run()[1])
+    for label, run in _open_loop_steps(repro_sim, False, **reduced):
+        if label != "batched_find_saturation":
+            want.update(run()[1])
+    assert got == want
+    assert set(got) == set(chip_smoke.OPEN_LOOP_REFERENCE)
+    assert ops.launch_counts() == before
+
+
+def test_plain_tells_results_apart_by_every_field():
+    from repro_torch import sim
+    a = sim.SaturationResult("conduit", 1.0, 2.0, (2.0, 3.0), [])
+    b = sim.SaturationResult("conduit", 1.0, 2.0, (2.0, 3.0000000000000004),
+                             [])
+    assert chip_smoke.plain(a) != chip_smoke.plain(b)
+    assert chip_smoke.result_digest(a) != chip_smoke.result_digest(b)
+    assert chip_smoke.plain(sim.SessionState.COMPLETED) == "completed"
+    with pytest.raises(TypeError, match="no plain form"):
+        chip_smoke.plain(object())
+
+
 @pytest.fixture(scope="module")
 def tiny_numeric():
     return {name: workloads.run_numeric(name, "tiny", device="cpu")

@@ -84,11 +84,3 @@ def test_carried_jacobi1d_trace_matches_repro_simulate(policy):
     tr = repro_get_trace("jacobi1d", "tiny")
     want = _golden.digest_sim(repro_simulate(tr, policy))
     assert _golden.digest_sim(simulate(carry(tr), policy)) == want
-
-
-def test_analysis_waits_for_its_slice():
-    from repro_torch.sim.stats import MixResult
-    res = MixResult.__new__(MixResult)
-    res.telemetry = object()
-    with pytest.raises(NotImplementedError, match="analysis"):
-        res.analysis()

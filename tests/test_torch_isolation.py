@@ -107,3 +107,26 @@ def test_lm_modules_are_covered():
             "repro_torch.launch.steps", "repro_torch.kernels.attention"} \
         <= names
     assert (PORT / "kernels" / "csrc" / "attention.cu").is_file()
+
+
+def test_open_loop_modules_and_examples_are_covered():
+    """The isolation scan reaches the serving, fleet and analysis slice
+    and every example of the package."""
+    names = {_module_name(p) for p in PORT_FILES}
+    sim_modules = {f"repro_torch.sim.{m}" for m in (
+        "workgen", "serving", "drive", "analysis", "placement", "fleet",
+        "sweep", "stats")}
+    examples = {f"repro_torch.examples.{m}" for m in (
+        "multi_tenant_ndp", "gc_interference", "ndp_offload_demo",
+        "open_loop_serving", "gc_policies", "tracing_walkthrough",
+        "fleet_serving", "fault_injection")}
+    assert sim_modules | examples | {"repro_torch.examples"} <= names
+
+
+def test_example_without_device_needs_a_gpu(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    from repro_torch.examples import multi_tenant_ndp
+    monkeypatch.setattr(sys, "argv", ["multi_tenant_ndp"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multi_tenant_ndp.main()

@@ -75,6 +75,17 @@ def _torch_while_shared(a, b):
 # name -> (jax program, torch program, inputs)
 PROGRAMS = {
     "add": (lambda a, b: a + b, lambda a, b: a + b, (A, B)),
+    # a Python int carry: a symbolic int in torch, a weak int32 in jax
+    "while_int_carry": (
+        lambda a, b: jax.lax.while_loop(
+            lambda c: c[0] < 3, lambda c: (c[0] + 1, c[1] ^ b[:20000]),
+            (0, a[:20000])),
+        lambda a, b: while_loop(lambda i, t: i < 3,
+                                lambda i, t: (i + 1, t ^ b[:20000]),
+                                (0, a[:20000])), (A, B)),
+    # torch's arange is int64 and promotes the sum; jax's is int32
+    "add_arange": (lambda a, b: a + jnp.arange(a.shape[0]),
+                   lambda a, b: a + torch.arange(a.shape[0]), (A, B)),
     "mul_scalar": (lambda a, b: a * 3, lambda a, b: a * 3, (A, B)),
     "xor": (lambda a, b: a ^ b, lambda a, b: a ^ b, (A, B)),
     "shift_right": (lambda a, b: a >> 3, lambda a, b: a >> 3, (A, B)),
@@ -196,8 +207,9 @@ def test_one_primitive_program_matches_repro(name):
     assert_same_trace(got, want)
 
 
-@pytest.mark.parametrize("name", ["add", "reduce_sum", "slice_2d",
-                                  "select_last_argmax", "matmul"])
+@pytest.mark.parametrize("name", ["add", "add_arange", "reduce_sum",
+                                  "slice_2d", "select_last_argmax",
+                                  "matmul", "while_int_carry"])
 def test_unquantized_matches_repro(name):
     got, want = both(name, quantize=False)
     assert_same_trace(got, want)
@@ -221,13 +233,15 @@ def test_einsum_is_one_dot_general_without_shuffles():
     assert_same_trace(got, want)
 
 
-def assert_same_workload_trace(name, scale):
+def assert_same_workload_trace(name, scale, **override):
     """Fresh traces of one workload by both tracers.  Not ``get_trace``'s
     cached ones: ``simulate`` moves the pages of the trace it runs, and
-    another test in the process may have simulated a cached trace."""
+    another test in the process may have simulated a cached trace.
+    ``override`` replaces entries of the workload's vectorize settings."""
     got_mod, want_mod = WORKLOADS[name], REPRO_WORKLOADS[name]
     kw = getattr(want_mod, "VECTORIZE_KW", {})
     assert getattr(got_mod, "VECTORIZE_KW", {}) == kw
+    kw = {**kw, **override}
     got = vectorize(got_mod.make_fn(scale),
                     *got_mod.make_inputs(scale, device="cpu"), name=name,
                     **kw)
@@ -253,6 +267,12 @@ def test_workload_trace_matches_repro(name, scale):
     ``logits[-1]`` and the decode feed; a gradient recorded as
     ``jax.value_and_grad`` records it, on the paper's own programs."""
     assert_same_workload_trace(name, scale)
+
+
+def test_unquantized_llm_train_trace_matches_repro():
+    """Element widths count without INT8 lanes: the port's int64 labels
+    and index arithmetic take the reference's 4-byte lanes."""
+    assert_same_workload_trace("llm_train", "tiny", quantize=False)
 
 
 def test_where_is_select_in_the_port_and_control_in_repro():
