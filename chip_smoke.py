@@ -78,7 +78,23 @@ last line:
    ``batched_find_saturation`` of the three, which must equal them; a
    three-drive ``simulate_fleet`` with a collecting drive, its merged
    trace exported, validated and blamed.  Every result's digest must be
-   the JAX package's, with the seconds each run takes.
+   the JAX package's, with the seconds each run takes;
+9. train — the LM training path (``repro_torch.launch.train``), whose
+   attention is the JAX package's chunked einsum path (the kernel has no
+   backward and refuses autograd): three AdamW steps of reduced
+   tinyllama-1.1b in fp32 on the serving phase's seeded weights, whole
+   and in two microbatches (each step's loss, learning rate, gradient
+   norm and the L1 norm of its update within a stated tolerance of the
+   JAX package's); ``train`` with checkpoints every two steps, straight
+   and under ``run_elastic`` with a failure injected at step 4 (the
+   resumed run must equal the straight one); then tinyllama-1.1b at full
+   width and depth in bf16 with remat, batch 4 x 1024 tokens (two q
+   blocks of the einsum path): every parameter's gradient finite and
+   non-zero, six finite steps, no flash-attention launch, and the step
+   time, tokens/s, peak memory and model-flops share printed beside the
+   card's name and power limit, with one more step under
+   ``torch.profiler``: the device's busy time and the ATen ops that take
+   it.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -86,6 +102,7 @@ package beside this script, it fails and prints no result.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import enum
@@ -105,6 +122,8 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 from torch.utils import _pytree as pytree
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -117,8 +136,15 @@ from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import (_build, attention,  # noqa: E402
                                  int8_matmul, ops, ref)
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch.elastic import run_elastic  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
+from repro_torch.launch.steps import (build_train_step,  # noqa: E402
+                                      loss_and_grads)
+from repro_torch.launch.train import (device_batch,  # noqa: E402
+                                      make_state, state_from_numpy, train)
+from repro_torch.optim import AdamWState  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch import sim as torch_sim  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
@@ -257,8 +283,13 @@ REFERENCE = {
 # within 1e-5 absolute, and the L1 norm of the step (sum of |w' - w| in
 # float64) within 1e-5 relative.  On the CPU the port's step is 9.5e-7
 # (loss) and 5.1e-8 relative (step) from the JAX package's at paper scale
-# (tests/test_torch_train.py holds every parameter within 1e-6).
-TRAIN_TOL = {"loss": 1e-5, "step_l1_rtol": 1e-5}
+# (tests/test_torch_workloads.py:36-38 holds every parameter within 1e-6).
+# The train phase holds its AdamW steps to the same bounds, the global
+# gradient norm within 1e-5 relative as the L1 norm, and the learning
+# rate within 1e-6 relative (the schedule is float32 in both packages,
+# a few ulp apart at most).
+TRAIN_TOL = {"loss": 1e-5, "step_l1_rtol": 1e-5, "grad_norm_rtol": 1e-5,
+             "lr_rtol": 1e-6}
 # The mix phase: jacobi1d and heat3d at paper beside a Zipf (0.95) host
 # I/O stream, 30 % reads, on a drive preconditioned to 90 % with greedy GC
 # (tests/_golden.py's gc_ftl scenario at the default FTL geometry and
@@ -327,6 +358,65 @@ SERVE_REFERENCE = {"tokens_sha256": [
     "97e52bc2e8d1fd8bdad649eb9f34897d258da6fc96c36a4d21bd9c8c2c74e608",
     "e23d31ac734784fed22b7bd93aa4bc0c94332db4bbe170c6b19cd7457d8039a0",
     "001b3cba040c4bc14856d52d3af2f8b70952b698aefd7039ce4052b051a41958"]}
+# The train phase.  (a) pinned: the serving phase's pinned config and
+# weights (reduced tinyllama-1.1b, fp32, jax_layout_params(cfg, seed=0))
+# with zero AdamW state, three steps of build_train_step(cfg,
+# total_steps=3, base_lr=1e-3) on SyntheticLM(cfg.vocab, 32, 4, seed=0)
+# batches 0-2 (TRAIN_PINNED_STREAM), whole and in two microbatches.
+# TRAIN_LM_REFERENCE holds the JAX package's metrics of each step (keyed
+# by microbatches) and the L1 norm of its update;
+# tests/test_torch_chip_smoke.py recomputes them with
+# repro.launch.steps.build_train_step.
+TRAIN_PINNED = {"seq": 32, "batch": 4, "steps": 3, "base_lr": 1e-3}
+# Those batches as the JAX package draws them: numpy's Generator.zipf
+# draws other values from one seed in numpy 2.0 and 2.3, so a SyntheticLM
+# made beside another numpy gives other tokens.  Each step's [batch,
+# seq + 1] stream (tokens are its first seq columns, labels its last) as
+# little-endian uint16, base64; tests/test_torch_chip_smoke.py holds it
+# equal to both packages' SyntheticLM batches.
+TRAIN_PINNED_STREAM = (
+    "nQCeAHEAQABBAHcBBAAAAAEAdQBTAQEAAgADAEQARQACAAAA7QDfAQYAAgAMAAAA"
+    "BAAIAB4AHwCtAK4AAAAZABoAAAABAAIAAwACAQMBBwAIAAMA0gAAAFEApwEEAJ8B"
+    "bgE2AJoAAAAAAAEAAwAEAGYACQDgANAB0QF5AAEADwA8AAEAJwBtAQAAAQACAAgB"
+    "SQBKAAEAAAAAALEAVgEAAAEAAgANAe4BAAABAHwAUwEAAAoACwDEAfUB9gH3ATAA"
+    "DAABAAIAkABDAAoACwAMAAAAAQACAB8AAQA/AEAAQQA+AG8AgQEBAAgAPQAjAGQB"
+    "AgAAAAEAAgADAA0BAQAHALoBGAAAAEsArwEAABMBgwAAAAEA9gBLAAAAAwAQABEA"
+    "EgAHAKYApwAKAAsADAACAAMACABUAGwBbQEMAAAAAQAAAPkB+gFBAH8AAQAUAAAA"
+    "EgHdAFAAUQABAAIAFwAFAQYBBwECAAAAewEAABYAAAABAAIAAAABAAAAAQACAAEA"
+    "xgAAAAEAAAAVABYABQAFAAEAAgD3AQUABgAHAAgABgCVAZYBawFsAW0BjQBAAAAA"
+    "GAAZAAEAAgAAAAEAAgADAAQABQAGAAIBkQEDAQQBkgGTAQAAEQASABMARgBHAAAA"
+    "AQAtAGIBYwFkAbMBewA3ABUAFgAQAAAApQAAAAEAAgADAIMBhAEUABUAFgDXANgA"
+    "AABiAAAAAAAZABoAGwAcADYAAwAAAAYAAQBLAEwAOQAFAEYARwBIAAAAAQACAAYA"
+    "BwAAABQAHAAAAJcAcQE1APsBOgAAAAEAAgCvALAAAAAHAAgAkQCSAJMAGwFLAEwA"
+    "6QEGAAcAAgADAAQABgADAAQABQBpAQIAEABvAHAAcQByAAAAJAAAAAEAJgEAAAUA"
+    "VwFYARgAKAApAAgACQBjAGQAZQAVAM8AAAAAAAEA+QAGAKoAagBVAFYAAAAAAAEA"
+    "AgADAAQACwDWADUAAQACAAkABQAGAAEAAAAAAAEABgAHAAgAZwFoAWkBDAANAAAA"
+    "JQAmAFkALgEvAQAAAQAsASYAAAABACYA")
+TRAIN_LM_REFERENCE = {
+    1: [{"loss": 6.791132926940918, "lr": 0.00010000000474974513,
+         "grad_norm": 11.107434272766113, "step_l1": 69.8164639514367},
+        {"loss": 6.765918731689453, "lr": 0.00020000000949949026,
+         "grad_norm": 13.32223892211914, "step_l1": 94.53674616340099},
+        {"loss": 6.705817699432373, "lr": 0.0003000000142492354,
+         "grad_norm": 12.461749076843262, "step_l1": 117.88666881342087}],
+    2: [{"loss": 6.791132926940918, "lr": 0.00010000000474974513,
+         "grad_norm": 11.107434272766113, "step_l1": 69.81646367397704},
+        {"loss": 6.7659196853637695, "lr": 0.00020000000949949026,
+         "grad_norm": 13.322239875793457, "step_l1": 94.53674658731859},
+        {"loss": 6.705817222595215, "lr": 0.0003000000142492354,
+         "grad_norm": 12.461750984191895, "step_l1": 117.88667720704973}]}
+# (b) restart: train() on the pinned config, checkpoints every 2 steps,
+# straight and under run_elastic with a failure injected at step 4.
+TRAIN_RESTART = {"steps": 6, "batch": 4, "seq": 32, "ckpt_every": 2,
+                 "fail_at": 4}
+# (c) full width and depth, bf16, remat: batch 4 x 1024 tokens (two
+# SDPA_CHUNK q blocks), six steps, the step time the median of the last
+# five
+TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 1024, "base_lr": 1e-3}
+# the ATen ops printed from the profiled step, by device time
+TRAIN_PROFILE_ROWS = 16
+# the arch name under which train() finds the pinned config
+PINNED_ARCH = "tinyllama-1.1b-pinned"
 # run_numeric's output dtype where it is not the JAX package's int32: the
 # tokens torch.argmax gives are int64 (jnp.argmax gives int32); the digest
 # reads every output as int32
@@ -1148,6 +1238,234 @@ def serve_plain(cfg, params, p, device):
     return [r.generated for r in done]
 
 
+# -- phase 9: the LM training path --------------------------------------------
+# On CPU tensors these also run, at the pinned size, in the CPU tests.
+
+def pinned_batches() -> list:
+    """TRAIN_PINNED's batches 0-2 of SyntheticLM(cfg.vocab, seq, batch,
+    seed=0), as the JAX package draws them (TRAIN_PINNED_STREAM)."""
+    p = TRAIN_PINNED
+    toks = np.frombuffer(base64.b64decode("".join(TRAIN_PINNED_STREAM)),
+                         dtype="<u2").astype(np.int32).reshape(
+        p["steps"], p["batch"], p["seq"] + 1)
+    return [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+
+def train_pinned(device, microbatches: int) -> list:
+    """TRAIN_PINNED's steps of build_train_step on the pinned weights
+    (jax_layout_params(cfg, seed=0)) with zero AdamW state: each step's
+    loss, learning rate, gradient norm and update L1 norm."""
+    cfg = pinned_config()
+    p = TRAIN_PINNED
+    tree = jax_layout_params(cfg, seed=0)
+    zeros = pytree.tree_map(np.zeros_like, tree)
+    params, opt = state_from_numpy(cfg, tree, AdamWState(0, zeros, zeros),
+                                   device).values()
+    step_fn = build_train_step(cfg, total_steps=p["steps"],
+                               base_lr=p["base_lr"],
+                               microbatches=microbatches)
+    rows = []
+    for batch in pinned_batches():
+        new, opt, metrics = step_fn(params, opt, device_batch(batch, device))
+        rows.append({"loss": float(metrics["loss"]),
+                     "lr": float(metrics["lr"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "step_l1": step_l1(new, params)})
+        params = new
+    return rows
+
+
+def train_metrics_within(got: dict, want: dict) -> bool:
+    tol = TRAIN_TOL
+    return (abs(got["loss"] - want["loss"]) <= tol["loss"]
+            and abs(got["lr"] - want["lr"]) <= tol["lr_rtol"] * want["lr"]
+            and abs(got["grad_norm"] - want["grad_norm"])
+            <= tol["grad_norm_rtol"] * want["grad_norm"]
+            and abs(got["step_l1"] - want["step_l1"])
+            <= tol["step_l1_rtol"] * want["step_l1"])
+
+
+@contextlib.contextmanager
+def arch_registered(name: str, cfg):
+    """``configs.get(name)`` gives ``cfg`` for the duration (the train
+    driver reads its config there), as the train_tinylm example routes
+    its config through the driver."""
+    get = configs.get
+    configs.get = lambda n: cfg if n == name else get(n)
+    try:
+        yield
+    finally:
+        configs.get = get
+
+
+def train_restart(device, directory: str):
+    """TRAIN_RESTART through train() on the pinned config: (the straight
+    run's result, the result of the run resumed under run_elastic after
+    the injected failure, the number of attempts)."""
+    p = TRAIN_RESTART
+    kw = dict(steps=p["steps"], batch=p["batch"], seq=p["seq"],
+              ckpt_every=p["ckpt_every"], reduced=False, log_every=1,
+              device=device)
+    attempts, results = [], []
+
+    def once(_resume_step):
+        # fail only on the first attempt, as the driver's main() does
+        fail = None if attempts else p["fail_at"]
+        attempts.append(fail)
+        results.append(train(PINNED_ARCH,
+                             ckpt_dir=os.path.join(directory, "elastic"),
+                             fail_at=fail, **kw))
+        return p["steps"]
+
+    with arch_registered(PINNED_ARCH, pinned_config()):
+        straight = train(PINNED_ARCH,
+                         ckpt_dir=os.path.join(directory, "straight"), **kw)
+        run_elastic(once, max_restarts=1, on_restart=lambda n, e: print(
+            f"[elastic] restart #{n}: {e}"))
+    return straight, results[-1], len(attempts)
+
+
+def largest_difference(a, b) -> float:
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
+
+
+def gradient_report(grads) -> dict:
+    """Each gradient leaf by its path: (finite, L2 norm)."""
+    flat, _ = pytree.tree_flatten_with_path(grads)
+    finite = torch.stack([torch.isfinite(g).all() for _, g in flat]).cpu()
+    norms = torch.stack([g.float().norm() for _, g in flat]).cpu()
+    return {pytree.keystr(path): (bool(f), float(n))
+            for (path, _), f, n in zip(flat, finite, norms)}
+
+
+def profiled_step(step_fn, params, opt, batch) -> dict:
+    """One train step under ``torch.profiler``: the device's busy time
+    (the sum of its kernels, copies and fills) and the device time of the
+    ATen ops that launched them, largest first."""
+    activities = [ProfilerActivity.CPU]
+    if params["emb"].is_cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        _, _, metrics = step_fn(params, opt, batch)
+        float(metrics["loss"])
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type != DeviceType.CPU)
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda row: -row[1])
+    return {"device_busy_ms": busy / 1e3, "ops": by_op}
+
+
+def train_full(cfg, device) -> dict:
+    """TRAIN_FULL on ``cfg`` from make_state(cfg, seed=0): the step-0
+    gradient of every parameter (loss_and_grads, outside the timed steps),
+    then the steps of build_train_step, each timed to the host's copy of
+    its loss (the copy waits for the whole step), then one more step under
+    the profiler (:func:`profiled_step`), not timed."""
+    p = TRAIN_FULL
+    # unpacked so that no reference keeps the initial state alive
+    params, opt = make_state(cfg, seed=0, device=device).values()
+    data = SyntheticLM(cfg.vocab, p["seq"], p["batch"], seed=0)
+    _, grads = loss_and_grads(cfg, params, device_batch(data.batch(0), device))
+    report = gradient_report(grads)
+    del grads
+    step_fn = build_train_step(cfg, total_steps=p["steps"],
+                               base_lr=p["base_lr"])
+    losses, norms, seconds = [], [], []
+    for step in range(p["steps"]):
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt,
+                                       device_batch(data.batch(step), device))
+        losses.append(float(metrics["loss"]))
+        if params["emb"].is_cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+    prof = profiled_step(step_fn, params, opt,
+                         device_batch(data.batch(p["steps"]), device))
+    return {"gradients": report, "losses": losses, "grad_norms": norms,
+            "step_s": seconds, "profile": prof,
+            "n_params": sum(t.numel() for t in pytree.tree_leaves(params))}
+
+
+def train_phase(card: str) -> None:
+    """Phase 9 on the card (``card``: the nvidia-smi name and power
+    limit); raises where a check fails."""
+    phase("train")
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    # (a) pinned: reduced, fp32, the JAX package's metrics
+    for microbatches, want in TRAIN_LM_REFERENCE.items():
+        got = train_pinned("cuda", microbatches)
+        for step, (g, w) in enumerate(zip(got, want)):
+            print(f"pinned train (reduced {SERVE_ARCH}, fp32, microbatches "
+                  f"{microbatches}) step {step}: {json.dumps(g)}; JAX "
+                  f"{json.dumps(w)}")
+            if not train_metrics_within(g, w):
+                raise AssertionError(f"pinned train step {step} is not "
+                                     f"within {TRAIN_TOL} of the JAX "
+                                     f"package's")
+    # (b) restart: straight against resumed after an injected failure
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        straight, resumed, attempts = train_restart("cuda", directory)
+    diff = largest_difference(straight["state"], resumed["state"])
+    print(f"restart: {attempts} attempts; final loss straight "
+          f"{straight['final_loss']!r}, resumed {resumed['final_loss']!r}; "
+          f"losses straight {straight['losses']}, resumed "
+          f"{resumed['losses']}; largest |state difference| {diff!r} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if attempts != 2 or straight["final_loss"] != resumed["final_loss"] \
+            or diff != 0.0:
+        raise AssertionError("the resumed run differs from the straight "
+                             "one")
+    # (c) full width and depth, bf16, remat
+    full = configs.get(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_full(full, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    bad = {k: v for k, v in res["gradients"].items()
+           if not v[0] or v[1] == 0.0}
+    norms = [v[1] for v in res["gradients"].values()]
+    print(f"full train step 0: {len(norms)} parameter gradients, all finite "
+          f"and non-zero: {not bad}; norms {min(norms)!r} to "
+          f"{max(norms)!r}")
+    if bad:
+        raise AssertionError(f"full train: gradients missing, zero or not "
+                             f"finite: {bad}")
+    if not all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
+        raise AssertionError(f"full train: {res}")
+    p = TRAIN_FULL
+    tokens = p["batch"] * p["seq"]
+    step_s = statistics.median(res["step_s"][1:])
+    mfu = 6 * res["n_params"] * tokens / step_s / BF16_TENSOR_FLOPS_PER_S
+    print(f"full train ({SERVE_ARCH}, {full.n_layers} layers, d "
+          f"{full.d_model}, bf16, remat {full.remat}, {p}) on [{card}]: "
+          f"losses {res['losses']}, grad norms {res['grad_norms']}; step "
+          f"seconds {res['step_s']}; median of steps 2-{p['steps']} "
+          f"{step_s * 1e3:.3f} ms, {tokens / step_s:.1f} tokens/s; peak "
+          f"memory {peak} B; {res['n_params']} parameters, mfu "
+          f"{mfu:.4f} (6 N tokens / step / {BF16_TENSOR_FLOPS_PER_S:.4g}, "
+          f"remat's recompute not counted)")
+    prof = res["profile"]
+    print(f"full train, one more step under torch.profiler: device busy "
+          f"{prof['device_busy_ms']:.3f} ms, "
+          f"{prof['device_busy_ms'] / 1e3 / step_s:.4f} "
+          f"of the median step; device ms by ATen op (calls):")
+    for name, ms, count in prof["ops"][:TRAIN_PROFILE_ROWS]:
+        print(f"  {name}: {ms:.3f} ms ({count})")
+    launched = ops.launch_counts()
+    print(f"train phase in {time.perf_counter() - t_phase:.3f} s; launches "
+          f"{launched}")
+    if any(launched.values()):
+        raise AssertionError(f"the train phase launched a kernel: "
+                             f"{launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1170,7 +1488,7 @@ def main() -> int:
           f"{max_sm_mhz:.0f} MHz -> INT32 peak {int32_ops_per_s:.4g} op/s; "
           f"HBM {HBM_BYTES_PER_S:.4g} B/s; INT8 tensor peak "
           f"{INT8_TENSOR_OPS_PER_S:.4g} op/s; torch {torch.__version__} "
-          f"CUDA {torch.version.cuda}; TF32 matmul "
+          f"CUDA {torch.version.cuda}; numpy {np.__version__}; TF32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # -- 2. build ---------------------------------------------------------
@@ -1871,6 +2189,9 @@ def main() -> int:
     if any(ops.launch_counts().values()):
         raise AssertionError(f"the open-loop phase launched a kernel: "
                              f"{ops.launch_counts()}")
+
+    # -- 9. LM training: AdamW steps, checkpoint restart, full width ---------
+    train_phase(card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

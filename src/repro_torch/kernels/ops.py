@@ -123,7 +123,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """Attention over ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with an
     online softmax; ``scale`` defaults to 1/sqrt(dh); the causal mask keeps
-    ``q_pos >= k_pos`` (top-left, as the JAX package's kernel)."""
+    ``q_pos >= k_pos`` (top-left, as the JAX package's kernel).
+
+    Forward only: the kernel has no backward, as the JAX package's has no
+    VJP, so a call that autograd would record raises ``RuntimeError`` on
+    every device (a gradient through the plain version would hold on the
+    CPU only).  Training attends through the chunked einsum path of
+    ``models/layers.py``."""
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
         raise ValueError(f"flash_attention: expected q [H, Sq, dh] and k, v "
@@ -143,6 +149,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"flash_attention: operands on {q.device}, "
                          f"{k.device} and {v.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel (K6) has no backward, in the JAX "
+            "package as here; call it under torch.no_grad() or on tensors "
+            "that do not require grad, and train through the einsum path "
+            "(models/layers.py _sdpa with flash=False)")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
     if q.is_cuda:

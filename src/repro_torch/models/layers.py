@@ -7,15 +7,19 @@ SwiGLU MLP.  The JAX package's sharding hints are not carried over (they
 are no-ops outside a mesh, and the port runs on one card); MLA, MoE and
 M-RoPE come with their slice (ROADMAP.md Queue 1).
 
-Attention over a whole sequence (``_sdpa``) goes through the hand-written
-flash-attention kernel (:func:`repro_torch.kernels.ops.flash_attention`,
-the JAX package's K6), which the JAX package's docstring names as the
-replacement of its chunked einsum path on real hardware.  In fp32 the two
-agree to rounding.  In bf16 the kernel rounds the probabilities to bf16 for
-the product with v, as the JAX einsum path casts them to the working type,
-but normalises by the sum of the rounded weights where that path
-normalises first: the two agree within the bf16 tolerance of
-``kernels/ref.py``.
+Attention over a whole sequence (``_sdpa``) takes one of two paths, chosen
+by the caller's ``flash`` argument.  Serving (``flash=True``) goes through
+the hand-written flash-attention kernel
+(:func:`repro_torch.kernels.ops.flash_attention`, the JAX package's K6),
+which the JAX package's docstring names as the replacement of its chunked
+einsum path on real hardware.  In fp32 the two agree to rounding.  In bf16
+the kernel rounds the probabilities to bf16 for the product with v, as the
+JAX einsum path casts them to the working type, but normalises by the sum
+of the rounded weights where that path normalises first: the two agree
+within the bf16 tolerance of ``kernels/ref.py``.  Training
+(``flash=False``) takes the JAX package's own chunked einsum path
+(``SDPA_CHUNK``, ``_sdpa_block``): K6 has no backward there either, and
+refuses autograd here.
 """
 from __future__ import annotations
 
@@ -108,15 +112,47 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          causal: bool) -> torch.Tensor:
-    """q [B,Sq,H,dh], k/v [B,Sk,H,dh] -> [B,Sq,H,dh] through the
-    flash-attention kernel; the causal mask is aligned top-left.
+SDPA_CHUNK = 512   # q-block size for chunked attention (long sequences)
 
-    The kernel never forms the [Sq, Sk] scores, so the JAX package's
-    q-row chunking (``SDPA_CHUNK``, ``_sdpa_block``), which bounded that
-    matrix, has no counterpart here."""
+
+def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, q_offset: int) -> torch.Tensor:
+    """The JAX package's ``_sdpa_block``: scores of the working type's
+    operands summed in fp32 (bf16 products are exact in fp32, so operands
+    cast to fp32 give ``preferred_element_type=float32``'s numbers), -1e30
+    under the mask, an fp32 softmax, the probabilities cast to the working
+    type for the product with v, summed in fp32."""
+    dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where(qpos >= kpos, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          causal: bool, flash: bool) -> torch.Tensor:
+    """q [B,Sq,H,dh], k/v [B,Sk,H,dh] -> [B,Sq,H,dh]; the causal mask is
+    aligned top-left.
+
+    ``flash``: through the flash-attention kernel, which never forms the
+    [Sq, Sk] scores.  Otherwise the JAX package's einsum path: a sequence
+    longer than ``SDPA_CHUNK`` and a multiple of it goes in q-row blocks
+    (the reference's ``lax.scan``), so that only [B,H,C,Sk] scores exist
+    at a time."""
     b, sq, h, dh = q.shape
+    if not flash:
+        if sq <= SDPA_CHUNK or sq % SDPA_CHUNK != 0:
+            return _sdpa_block(q, k, v, causal, 0)
+        return torch.cat([_sdpa_block(q[:, i:i + SDPA_CHUNK], k, v, causal,
+                                      i)
+                          for i in range(0, sq, SDPA_CHUNK)], dim=1)
     sk = k.shape[1]
 
     def heads(t: torch.Tensor, s: int) -> torch.Tensor:
@@ -130,8 +166,13 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Dict] = None,
                   causal: bool = True,
-                  kv_source: Optional[torch.Tensor] = None):
+                  kv_source: Optional[torch.Tensor] = None,
+                  flash: bool = True):
     """GQA self-attention (or cross-attention when ``kv_source`` is given).
+
+    ``flash`` chooses the whole-sequence attention of ``_sdpa``: the
+    flash-attention kernel (serving) or the einsum path (training, which
+    needs a backward).
 
     ``cache``: {"k","v" [B,Smax,Hkv,dh], "index" int} — the new keys and
     values are written into the cache tensors in place (where JAX returns
@@ -164,7 +205,7 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         if idx == 0 and s > 1:
             out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                        causal=True)
+                        causal=True, flash=flash)
         else:
             # the group dim folded into q, the cache read once; products of
             # the working type summed in fp32 (JAX: preferred_element_type)
@@ -183,7 +224,8 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     else:
         kk = _repeat_kv(k, n_rep)
         vv = _repeat_kv(v, n_rep)
-        out = _sdpa(q, kk, vv, causal=causal and kv_source is None)
+        out = _sdpa(q, kk, vv, causal=causal and kv_source is None,
+                    flash=flash)
         new_cache = None
     out = out.reshape(b, s, cfg.n_heads * dh)
     return out @ p["wo"], new_cache

@@ -1,5 +1,5 @@
 """Model assembly for the dense decoder-only configs: init, forward,
-prefill, decode.
+loss, prefill, decode.
 
 The counterpart of the JAX package's ``repro/models/model.py`` for configs
 whose every block is ``attn`` (tinyllama-1.1b, qwen3-4b, llama2-7b,
@@ -8,6 +8,14 @@ minicpm-2b, stablelm-1.6b).  Parameters are plain dicts of tensors:
 loop over ``layers`` takes the place of the JAX package's ``lax.scan``
 over stacked segments.  :func:`params_from_numpy` carries the JAX
 package's parameter tree across, so that both compute the same thing.
+``torch.utils.checkpoint`` wraps each block of the cache-free forward
+when ``cfg.remat`` (activation rematerialization for training), where the
+JAX package wraps its scanned block in ``jax.checkpoint``.
+
+Whole-sequence attention is chosen by ``forward``'s ``flash`` argument:
+the flash-attention kernel for serving (prefill), the JAX package's
+chunked einsum path for :func:`lm_loss`, which autograd differentiates
+(the kernel, like the JAX package's, has no backward).
 
 The KV cache is a list with one ``{"k", "v"}`` dict of tensors per layer,
 updated in place by prefill and decode (JAX returns updated copies); the
@@ -15,8 +23,7 @@ caches these functions return are the tensors they were given.
 
 Configs with MoE or MLA blocks, M-RoPE, SSM/xLSTM blocks, an encoder or a
 shared attention block raise ``NotImplementedError``; ROADMAP.md Queue 1
-names the slice that brings each.  ``lm_loss`` and the train step come
-with the training slice.
+names the item that brings them.
 """
 from __future__ import annotations
 
@@ -24,14 +31,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
-# the slice of ROADMAP.md Queue 1 that brings what the port cannot run yet
-LM_FAMILIES_SLICE = "ROADMAP.md Queue 1, slice 6 (LM families)"
+# the item of ROADMAP.md Queue 1 that brings what the port cannot run yet
+LM_FAMILIES_SLICE = "ROADMAP.md Queue 1, item 1 (LM families)"
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -136,14 +144,16 @@ def params_from_numpy(cfg: ArchConfig, tree: Params,
 # -- per-block apply ----------------------------------------------------------
 
 def block_apply(kind: str, cfg: ArchConfig, p: Params, x: torch.Tensor,
-                positions: torch.Tensor, cache: Optional[Dict] = None):
-    """Returns (x, new_cache)."""
+                positions: torch.Tensor, cache: Optional[Dict] = None,
+                flash: bool = True):
+    """Returns (x, new_cache).  ``flash``: whole-sequence attention through
+    the flash-attention kernel, else the einsum path."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} not ported yet; it "
                                   f"comes with {LM_FAMILIES_SLICE}")
     h, new_cache = L.gqa_attention(p["attn"], cfg,
                                    L.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                   positions, cache)
+                                   positions, cache, flash=flash)
     x = x + h
     x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, new_cache
@@ -164,15 +174,31 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 # -- forward ------------------------------------------------------------------
 
+def _block_out(kind: str, cfg: ArchConfig, p_l: Params, x: torch.Tensor,
+               positions: torch.Tensor, flash: bool) -> torch.Tensor:
+    return block_apply(kind, cfg, p_l, x, positions, None, flash)[0]
+
+
 def forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
             positions: torch.Tensor, caches: Optional[List] = None,
-            index: Optional[int] = None):
+            index: Optional[int] = None, flash: bool = True):
     """Backbone forward. ``x`` [B,S,D] embeddings; with ``caches``, the new
-    keys and values go in at position ``index``.  Returns (h, caches)."""
+    keys and values go in at position ``index``.  Returns (h, caches).
+
+    ``flash``: whole-sequence attention through the flash-attention kernel
+    (forward only), else the JAX package's einsum path.  Without caches
+    and with ``cfg.remat``, each block's activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``)."""
     check_supported(cfg)
     for i, (kind, p_l) in enumerate(zip(cfg.pattern, params["layers"])):
-        cache = None if caches is None else dict(caches[i], index=index)
-        x, _ = block_apply(kind, cfg, p_l, x, positions, cache)
+        if caches is not None:
+            x, _ = block_apply(kind, cfg, p_l, x, positions,
+                               dict(caches[i], index=index), flash)
+        elif cfg.remat:
+            x = checkpoint(_block_out, kind, cfg, p_l, x, positions, flash,
+                           use_reentrant=False)
+        else:
+            x = _block_out(kind, cfg, p_l, x, positions, flash)
     return x, caches
 
 
@@ -190,6 +216,24 @@ def logits_of(cfg: ArchConfig, params: Params, h: torch.Tensor
 
 
 # -- task-level functions -----------------------------------------------------
+
+def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Causal-LM cross entropy (fp32 scalar) of ``tokens`` against
+    ``labels`` [B, S], attending through the einsum path, so that autograd
+    differentiates it.  The JAX package's ``extra_embeds``, ``pos3`` and
+    ``enc_feats`` serve the configs :func:`check_supported` refuses, so
+    there are none here."""
+    x = embed(cfg, params, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    h, _ = forward(cfg, params, x, positions, flash=False)
+    logits = logits_of(cfg, params, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    return torch.mean(logz - gold)
+
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, caches):
     """Run the prompt ``tokens`` [B, S] through the model, filling caches

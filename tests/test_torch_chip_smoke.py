@@ -250,6 +250,75 @@ def test_serve_phase_rehearsed_on_the_cpu():
     assert all(len(t) == p["max_new"] for t in tokens)
 
 
+# -- phase 9: the LM training path --------------------------------------------
+
+@pytest.mark.parametrize("microbatches", sorted(chip_smoke.TRAIN_LM_REFERENCE))
+def test_train_reference_is_the_jax_packages(microbatches):
+    """The pinned metrics are those of the JAX package's train step on the
+    smoke's numpy weights with zero AdamW state and its SyntheticLM
+    batches, within TRAIN_TOL (XLA's CPU sums may differ in the last bit
+    between machines)."""
+    import jax.numpy as jnp
+    from _lm_reference import jax_config
+    from repro.data import SyntheticLM
+    from repro.launch.steps import build_train_step
+    from repro.optim import adamw_init
+    cfg = jax_config(chip_smoke.SERVE_ARCH)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        chip_smoke.pinned_config())
+    p = chip_smoke.TRAIN_PINNED
+    step_fn = jax.jit(build_train_step(cfg, total_steps=p["steps"],
+                                       base_lr=p["base_lr"],
+                                       microbatches=microbatches))
+    params = jax.tree_util.tree_map(
+        jnp.asarray, chip_smoke.jax_layout_params(cfg, seed=0))
+    opt = adamw_init(params)
+    data = SyntheticLM(cfg.vocab, p["seq"], p["batch"], seed=0)
+    want = chip_smoke.TRAIN_LM_REFERENCE[microbatches]
+    # chip_smoke.pinned_batches() are these batches (tested below)
+    assert len(want) == p["steps"]
+    for step in range(p["steps"]):
+        new, opt, m = step_fn(params, opt, {
+            k: jnp.asarray(v) for k, v in data.batch(step).items()})
+        l1 = sum(float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).sum())
+                 for a, b in zip(jax.tree_util.tree_leaves(new),
+                                 jax.tree_util.tree_leaves(params)))
+        got = {"loss": float(m["loss"]), "lr": float(m["lr"]),
+               "grad_norm": float(m["grad_norm"]), "step_l1": l1}
+        assert chip_smoke.train_metrics_within(got, want[step]), got
+        params = new
+
+
+def test_pinned_batches_are_both_packages_synthetic_batches():
+    from repro.data import SyntheticLM as RefSyntheticLM
+    from repro_torch.data import SyntheticLM
+    p = chip_smoke.TRAIN_PINNED
+    cfg = chip_smoke.pinned_config()
+    batches = chip_smoke.pinned_batches()
+    assert len(batches) == p["steps"]
+    for step, got in enumerate(batches):
+        for data in (SyntheticLM, RefSyntheticLM):
+            want = data(cfg.vocab, p["seq"], p["batch"], seed=0).batch(step)
+            assert got.keys() == want.keys()
+            for k in want:
+                assert got[k].dtype == want[k].dtype
+                assert np.array_equal(got[k], want[k])
+
+
+def test_train_metrics_within_holds_each_bound():
+    want = chip_smoke.TRAIN_LM_REFERENCE[1][0]
+    assert chip_smoke.train_metrics_within(dict(want), want)
+    tol = chip_smoke.TRAIN_TOL
+    for key, off in (("loss", 2 * tol["loss"]),
+                     ("lr", 2 * tol["lr_rtol"] * want["lr"]),
+                     ("grad_norm", 2 * tol["grad_norm_rtol"]
+                      * want["grad_norm"]),
+                     ("step_l1", 2 * tol["step_l1_rtol"] * want["step_l1"])):
+        assert not chip_smoke.train_metrics_within(
+            dict(want, **{key: want[key] + off}), want), key
+
+
 @pytest.mark.parametrize("mangled,label", [
     ("_ZN12_GLOBAL__N_120bitserial_add_kernelIjLb1EEEvPKT_S3_PS1_x",
      "bitserial_add_kernel<u32, 16-byte I/O>"),

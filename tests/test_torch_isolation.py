@@ -70,16 +70,19 @@ def test_chip_smoke_imports_no_jax_or_repro():
     _assert_no_jax_or_repro_import(PORT.parents[1] / "chip_smoke.py")
 
 
-@pytest.mark.parametrize("entry", ["get_trace", "run_numeric", "make_inputs"])
+@pytest.mark.parametrize("entry", ["get_trace", "run_numeric", "make_inputs",
+                                   "train"])
 def test_entry_points_without_device_need_a_gpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs there")
     from repro_torch import workloads
-    args = {"get_trace": ("jacobi1d", "tiny"),
-            "run_numeric": ("jacobi1d", "tiny"),
-            "make_inputs": ("jacobi1d", "tiny")}[entry]
+    from repro_torch.launch import train
+    fn, args = {"get_trace": (workloads.get_trace, ("jacobi1d", "tiny")),
+                "run_numeric": (workloads.run_numeric, ("jacobi1d", "tiny")),
+                "make_inputs": (workloads.make_inputs, ("jacobi1d", "tiny")),
+                "train": (train.train, ("tinyllama-1.1b", 1, 1, 4))}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        getattr(workloads, entry)(*args)
+        fn(*args)
 
 
 def test_cpu_is_given_only_when_asked():
@@ -119,8 +122,18 @@ def test_open_loop_modules_and_examples_are_covered():
     examples = {f"repro_torch.examples.{m}" for m in (
         "multi_tenant_ndp", "gc_interference", "ndp_offload_demo",
         "open_loop_serving", "gc_policies", "tracing_walkthrough",
-        "fleet_serving", "fault_injection")}
+        "fleet_serving", "fault_injection", "quickstart", "serve_batched",
+        "train_tinylm")}
     assert sim_modules | examples | {"repro_torch.examples"} <= names
+
+
+def test_training_modules_are_covered():
+    """The isolation scan reaches the training slice's modules."""
+    names = {_module_name(p) for p in PORT_FILES}
+    assert {f"repro_torch.{m}" for m in (
+        "optim", "optim.adamw", "optim.schedule", "optim.compress", "data",
+        "data.pipeline", "checkpoint", "checkpoint.manager",
+        "launch.elastic", "launch.train", "launch.steps")} <= names
 
 
 def test_example_without_device_needs_a_gpu(monkeypatch):
