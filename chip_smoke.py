@@ -33,7 +33,8 @@ last line:
    compare as two calls), beside the card's least time for the work, also
    at one shape beyond L2 for the IFP multiplier and the match line, and
    for the INT8 GEMM at llama2_infer's and llm_train's shapes, forward and
-   backward;
+   backward, and for flash attention at each shape phase 10 gives it
+   (``FAMILY_ATTN``, one query token against 256 keys among them);
 4. pipeline — jacobi1d, aes, xor_filter, heat3d, llama2_infer and
    llm_train at paper scale through the package's entry points: numeric
    run on the card (its outputs' digest must be the JAX package's; fp32
@@ -94,7 +95,28 @@ last line:
    time, tokens/s, peak memory and model-flops share printed beside the
    card's name and power limit, with one more step under
    ``torch.profiler``: the device's busy time and the ATen ops that take
-   it.
+   it;
+10. families — the LM families phases 6 and 9 do not cover (qwen2-vl-2b,
+   zamba2-1.2b, xlstm-125m, seamless-m4t-medium, dbrx-132b,
+   deepseek-v2-236b: M-RoPE, Mamba2 with a shared attention block,
+   xLSTM, an encoder-decoder, MoE, MLA).  Pinned: each reduced in fp32
+   on weights made here from a seed in the JAX package's tree layout
+   (zamba2 over a whole period, so that its shared block runs) through
+   the serving loop, and qwen2-vl and seamless also through prefill with
+   their patch or frame stubs and four decode steps (seamless
+   cross-attending to the encoder's output): every request's greedy
+   tokens must have the JAX package's digest (on a mismatch the
+   smallest top-k gate and logit margins are printed, so that a near
+   tie can be told from a fault).  Then each at its published widths in
+   bf16 from a seeded random init, dbrx and deepseek cut to 4 layers
+   (their whole depth outgrows the card), one batch of 4 x 1024-token
+   prompts with their stubs, prefill and 7 decode steps: the kernel's
+   launches exactly ``FAMILIES_K6``, every call of a recorded second run
+   within ``ATTN_TOL`` of the plain version, the last-token logits
+   finite and within ``FAMILIES_LOGIT_RTOL`` of the einsum path's; the
+   prefill and decode times, tokens/s, peak memory and the MoE share of
+   (token, expert) pairs dropped by capacity are printed beside the
+   card's name and power limit.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -140,12 +162,13 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch.elastic import run_elastic  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
-from repro_torch.launch.steps import (build_train_step,  # noqa: E402
+from repro_torch.launch.steps import (build_prefill_step,  # noqa: E402
+                                      build_serve_step, build_train_step,
                                       loss_and_grads)
 from repro_torch.launch.train import (device_batch,  # noqa: E402
                                       make_state, state_from_numpy, train)
 from repro_torch.optim import AdamWState  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import layers, model as M  # noqa: E402
 from repro_torch import sim as torch_sim  # noqa: E402
 from repro_torch.sim import simulate  # noqa: E402
 from repro_torch.workloads import (WORKLOADS, _llama,  # noqa: E402
@@ -195,6 +218,17 @@ MATMUL_MMA = [(16, 32, 8, "probe"), (16, 32, 16, "probe"),
 ATTN_CASES = [(2, 64, 64, 32), (1, 128, 128, 64), (4, 32, 32, 16),
               (2, 32, 128, 32), (3, 13, 37, 64), (2, 37, 13, 16),
               (1, 24, 40, 128), (2, 300, 300, 128), (2, 520, 1040, 64)]
+# the shapes phase 10 gives the kernel (heads, Sq, Sk, dh, causal): a
+# prefill batch of qwen2-vl-2b (4 x 12 heads, 64 patches + 1024 tokens,
+# dh 128), of dbrx-132b (4 x 48 heads), zamba2-1.2b's shared block (4 x
+# 32 heads, dh 64), seamless-m4t-medium's encoder over 256 frames, its
+# decoder's self-attention, its cross-attention in prefill and in a decode
+# step (one query token); each also in ATTN_CASES (both masks, both types)
+FAMILY_ATTN = [(48, 1088, 1088, 128, True), (192, 1024, 1024, 128, True),
+               (128, 1024, 1024, 64, True), (64, 256, 256, 64, False),
+               (64, 1024, 1024, 64, True), (64, 1024, 256, 64, False),
+               (64, 1, 256, 64, False)]
+ATTN_CASES += [shape[:4] for shape in FAMILY_ATTN]
 # tolerance (atol = rtol) against the plain version: fp32 as
 # tests/test_kernels.py:79 holds the Pallas kernel; bf16: the tensor-core
 # kernel rounds the softmax weights to bf16 for the product with v (2**-9
@@ -233,6 +267,120 @@ SERVE_FULL = {"n_requests": 8, "batch": 4, "prompt_len": 1024,
               "max_new": 16}
 # the pinned run: reduced config, fp32, weights from jax_layout_params
 SERVE_PINNED = {"n_requests": 4, "batch": 2, "prompt_len": 8, "max_new": 4}
+
+# Phase 10, the LM families (the configs phase 6 and 9 do not cover)
+FAMILY_ARCHS = ("qwen2-vl-2b", "zamba2-1.2b", "xlstm-125m",
+                "seamless-m4t-medium", "dbrx-132b", "deepseek-v2-236b")
+# zamba2's reduced config keeps the first four blocks of its pattern, all
+# mamba; the pinned one holds a whole period, so that the shared block runs
+ZAMBA2_PERIOD = ("mamba",) * 6 + ("sattn",)
+# the configs whose stubs go through prefill (and, for frames, decode)
+FAMILIES_EXTRAS = ("qwen2-vl-2b", "seamless-m4t-medium")
+# patch stubs a VLM prompt carries (repro/launch/steps.py extra_inputs)
+N_PATCHES = 64
+# the pinned stubbed run: prefill of two 8-token prompts, 4 decode steps
+FAMILIES_PINNED_EXTRAS = {"batch": 2, "prompt_len": 8, "max_new": 5}
+# published widths, bf16: one batch of 4 prompts x 1024 tokens, prefill
+# and 7 decode steps (8 greedy tokens)
+FAMILIES_FULL = {"batch": 4, "prompt_len": 1024, "max_new": 8}
+# the depth cuts: the whole models (263 GB and 477 GB of bf16 weights)
+# outgrow one card's 80 GB; 4 layers with all their experts
+FAMILIES_DEPTH = {"dbrx-132b": 4, "deepseek-v2-236b": 4}
+# flash-attention launches of a FAMILIES_FULL run (prefill, decode steps):
+# qwen2-vl 28 layers at [48, 1088, 128]; zamba2's 6 shared blocks at
+# [128, 1024, 64]; seamless 12 encoder [64, 256, 64] + 12 self [64, 1024,
+# 64] + 12 cross [64, 1024 -> 256, 64] in prefill, then the encoder again
+# for enc_out and 12 cross [64, 1 -> 256, 64] a step; dbrx 4 layers at
+# [192, 1024, 128]; none in xlstm (no attention) or deepseek (MLA)
+# the full-width prefill's last-token logits through the kernel against
+# the einsum path (flash=False): max |diff| at most this share of the
+# largest |logit|.  Both paths round to bf16 at every layer, and the
+# kernel normalises by its rounded weights (ATTN_TOL's 1e-2 a call);
+# reduced to 4 layers on the CPU they differ by 0.5-1.2 % of it, and
+# a wrong kernel moves logits by their own size
+FAMILIES_LOGIT_RTOL = 0.1
+FAMILIES_K6 = {"qwen2-vl-2b": (28, 0), "zamba2-1.2b": (6, 0),
+               "xlstm-125m": (0, 0), "seamless-m4t-medium": (36, 12 + 7 * 12),
+               "dbrx-132b": (4, 0), "deepseek-v2-236b": (0, 0)}
+
+# The JAX package's greedy tokens of phase 10's pinned runs
+# (family_config(arch), jax_layout_params(cfg, seed=0)): "serve" the
+# serving loop at SERVE_PINNED's sizes on the prompts of serve(seed=0);
+# "extras" the prefill and serve steps at FAMILIES_PINNED_EXTRAS on
+# family_prompts and family_extras(seed=0).  output_digest of each
+# request's tokens, in order; tests/test_torch_chip_smoke.py recomputes
+# them with the JAX package's steps.
+FAMILIES_REFERENCE = {
+    "qwen2-vl-2b": {
+        "serve": [
+            "3794a7dc031f135c896667e932a04c2d"
+            "e81dfbe5147e01ecd3649b12e393e277",
+            "b1a9edacd6e7d842da5c1823f000d7da"
+            "8e42eab8f8707de4db1115676e218f58",
+            "aec9a743ca53de8a7a2d06858cb2ed80"
+            "32969be092fcefcd07c26e82379aa7fa",
+            "1ebbccb5c12d62a633e47c5d446a040d"
+            "8d595e544f098b23d1a80afaeafb4144"],
+        "extras": [
+            "0726411dfb2c161f54983a23d149a9b8"
+            "18e84500a97537ea0c81ba27bd1277a1",
+            "0a268b3fbfb3d2366ac5fc7117062cbc"
+            "d0ec655a467e334a5f79b4a82720b725"]},
+    "zamba2-1.2b": {
+        "serve": [
+            "8cfd070e4db7d758baf6e789ce1a2afb"
+            "a51bab36b420b66f221f57f96e1fb5df",
+            "ab494571b82489e6b47005224d60e152"
+            "f47a790d8bfa131e064a5e8bfa08a489",
+            "4d6550f369539e3f56cbcfd6f542f60a"
+            "06248fcbbe5f722b8d3e345b1bcc6027",
+            "fefda00bb9b1215bc6446b7063fc5e0a"
+            "54a5e0bde802de377a657d953d93b9b7"]},
+    "xlstm-125m": {
+        "serve": [
+            "e553f4a0463587285a4b731770722ffd"
+            "0aa6e445440e5a624b57cf0279aaf8fb",
+            "45a904f344f8bff4fd8df0ff886a2fdb"
+            "13a0f35c5acd69d9c9c65317ac476d32",
+            "23a06f2d74302841ebe8f2da7a74fd97"
+            "efebef8df525fe813cd0dcb3e4ffe848",
+            "817614c89d010a11a16f2ee930ac5834"
+            "6281b5e3495076d175ed94e15b20529e"]},
+    "seamless-m4t-medium": {
+        "serve": [
+            "067f5740b4b406319d485c5d5c531c67"
+            "9002763b6e371bf3cc0d1425bf2333d8",
+            "496b2100d290ea97aac59cc4289f0b84"
+            "5c16ae90b327f765a000599c98df5ed0",
+            "7c4cef68079c2ec8700e58a9d6a97ac8"
+            "4dae572ef383bde7bd246f7c64dd423b",
+            "23d95767ec01712d1fe0e5a58f1b9d06"
+            "4435ea1dd7b5cf9ceeb930d2b2fd35e0"],
+        "extras": [
+            "b5701eb7d6c7d3c49d44c89e4defdf99"
+            "7e0ebb7bea368065fac20ea0ea125a22",
+            "dd954292f9c064934be3f46e9215736c"
+            "64585ccbaf7343f2c7832849bdce6b62"]},
+    "dbrx-132b": {
+        "serve": [
+            "0bf5eae8079bf1af177561f683d65a0d"
+            "be363b965811a2cefed143d449229ac6",
+            "d96314082ef0c22697083fc98fcf62b4"
+            "36857bb9c0444a23365cd8f64f9ff6b2",
+            "cacefe3b6d6234ad8216a53dcbea1247"
+            "94ae7481e229d2d8d28aae3b50dd60f8",
+            "5cd6ae1186cd45e8748208386e05b52b"
+            "ee7a78d5cbf55b755c4398a5bb7211f6"]},
+    "deepseek-v2-236b": {
+        "serve": [
+            "914c940a7b0d60de4e5329c8925d8907"
+            "cbb15225da35dc09270b39675cfafd19",
+            "49fb3919d3265041e75bebb275c2883c"
+            "95dfcdd7fb57fe59d86bbe4caa7c1c5f",
+            "bd810e031c56e26ddb7fd0bc4b4e9a3e"
+            "4f23d368cc28589cd61b762b57c9f8b6",
+            "bb3ca153eec7b224297d01f153cf4a87"
+            "ec7181f60a9eb3907f2e6bca54be4957"]}}
 
 # The JAX package's results at "paper" scale: Table 3 row, conduit
 # makespan, and the digest of ``run_numeric``'s outputs (output_digest).
@@ -663,6 +811,14 @@ def time_ms(fn, reps: int, clock_hz: float, rounds: int = 5) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def attn_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention scores: all of them, or under the
+    top-left causal mask the keys 0..i of query i."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
 
 
 def plane_mul_ops(w: int) -> float:
@@ -1138,11 +1294,16 @@ def replay_plan(numeric, scale="paper", device="cuda"):
 
 def jax_layout_params(cfg, seed: int) -> dict:
     """fp32 numpy weights of ``cfg`` in the JAX package's parameter tree
-    layout (``{"emb", "ln_f", ["unemb"], "segments": [one stacked dict]}``),
-    drawn from ``default_rng(seed)`` at the scales of its init (the card
-    has no JAX to draw its own); norm gains 1 + N(0, 0.1)."""
+    layout (``{"emb", "ln_f", ["unemb"], "segments": [one stacked dict per
+    segment, None for a shared-block segment], ["shared_attn"],
+    ["encoder"]}``, experts stacked ``[layers, E, ...]``), drawn from
+    ``default_rng(seed)`` at the scales of its init (the card has no JAX
+    to draw its own); norm gains, Mamba's ``d_skip`` 1 + N(0, 0.1) and its
+    ``a_log`` N(0, 0.1).  The segments are drawn first, then the shared
+    block, the encoder and the embeddings, so that a dense config's draws
+    are those of one ``attn`` segment."""
     rng = np.random.default_rng(seed)
-    n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+    d, dh, heads = cfg.d_model, cfg.head_dim, cfg.n_heads
 
     def normal(*shape, scale):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -1150,19 +1311,83 @@ def jax_layout_params(cfg, seed: int) -> dict:
     def gain(*shape):
         return 1 + normal(*shape, scale=0.1)
 
-    attn = {"wq": normal(n, d, cfg.n_heads * dh, scale=d ** -0.5),
-            "wk": normal(n, d, cfg.n_kv_heads * dh, scale=d ** -0.5),
-            "wv": normal(n, d, cfg.n_kv_heads * dh, scale=d ** -0.5),
-            "wo": normal(n, cfg.n_heads * dh, d,
-                         scale=(cfg.n_heads * dh) ** -0.5)}
-    if cfg.qk_norm:
-        attn.update(q_norm=gain(n, dh), k_norm=gain(n, dh))
-    seg = {"ln1": gain(n, d), "attn": attn, "ln2": gain(n, d),
-           "mlp": {"w1": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-                   "w3": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-                   "w2": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5)}}
-    tree = {"emb": normal(cfg.vocab, d, scale=0.02), "ln_f": gain(d),
-            "segments": [seg]}
+    def dense(lead, d_in, d_out, scale=None):
+        return normal(*lead, d_in, d_out,
+                      scale=d_in ** -0.5 if scale is None else scale)
+
+    def mlp(lead, ff):
+        return {"w1": dense(lead, d, ff), "w3": dense(lead, d, ff),
+                "w2": dense(lead, ff, d)}
+
+    def attn(lead, mla):
+        if mla:
+            r, rd, ql = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
+            a = {"w_dkv": dense(lead, d, r + rd), "kv_norm": gain(*lead, r),
+                 "w_uk": dense(lead, r, heads * dh),
+                 "w_uv": dense(lead, r, heads * dh),
+                 "wo": dense(lead, heads * dh, d)}
+            if ql:
+                a.update(w_dq=dense(lead, d, ql), q_norm=gain(*lead, ql),
+                         w_uq=dense(lead, ql, heads * (dh + rd)))
+            else:
+                a["w_q"] = dense(lead, d, heads * (dh + rd))
+            return a
+        a = {"wq": dense(lead, d, heads * dh),
+             "wk": dense(lead, d, cfg.n_kv_heads * dh),
+             "wv": dense(lead, d, cfg.n_kv_heads * dh),
+             "wo": dense(lead, heads * dh, d)}
+        if cfg.qk_norm:
+            a.update(q_norm=gain(*lead, dh), k_norm=gain(*lead, dh))
+        return a
+
+    def block(kind, lead):
+        if kind in ("attn", "moe"):
+            a = attn(lead, cfg.mla)
+            blk = {"ln1": gain(*lead, d), "attn": a, "ln2": gain(*lead, d)}
+            if kind == "attn":
+                blk["mlp"] = mlp(lead, cfg.d_ff)
+                return blk
+            ff, e = cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+            blk["moe"] = {"router": dense(lead, d, e, scale=0.02),
+                          "experts": mlp((*lead, e), ff)}
+            if cfg.n_shared_experts:
+                blk["moe"]["shared"] = mlp(lead, ff * cfg.n_shared_experts)
+            return blk
+        if kind == "xdec":
+            a, xa = attn(lead, False), attn(lead, False)
+            return {"ln1": gain(*lead, d), "attn": a,
+                    "lnx": gain(*lead, d), "xattn": xa,
+                    "ln2": gain(*lead, d), "mlp": mlp(lead, cfg.d_ff)}
+        if kind == "mamba":
+            di, n = cfg.ssm_expand * d, cfg.ssm_state
+            return {"w_in": dense(lead, d, 2 * di),
+                    "w_bc": dense(lead, d, 2 * n),
+                    "w_dt": dense(lead, d, di, scale=0.01),
+                    "conv_w": normal(*lead, cfg.conv_kernel, di, scale=0.1),
+                    "a_log": normal(*lead, di, scale=0.1),
+                    "d_skip": gain(*lead, di), "w_out": dense(lead, di, d),
+                    "norm": gain(*lead, d)}
+        if kind == "mlstm":
+            return {"wq": dense(lead, d, d), "wk": dense(lead, d, d),
+                    "wv": dense(lead, d, d),
+                    "w_if": dense(lead, d, 2 * heads, scale=0.02),
+                    "wo": dense(lead, d, d), "norm": gain(*lead, d),
+                    "out_norm": gain(*lead, d // heads)}
+        if kind == "slstm":
+            return {"w_gates": dense(lead, d, 4 * d),
+                    "r_gates": dense(lead, d, 4 * d, scale=0.02),
+                    "wo": dense(lead, d, d), "norm": gain(*lead, d)}
+        raise ValueError(kind)
+
+    segments = [None if kind == "sattn" else block(kind, (count,))
+                for kind, count in M.segments_of(cfg)]
+    tree = {}
+    if cfg.shared_attn_every:
+        tree["shared_attn"] = block("attn", ())
+    if cfg.enc_layers:
+        tree["encoder"] = block("attn", (cfg.enc_layers,))
+    tree.update(emb=normal(cfg.vocab, d, scale=0.02), ln_f=gain(d),
+                segments=segments)
     if not cfg.tie_embeddings:
         tree["unemb"] = normal(d, cfg.vocab, scale=d ** -0.5)
     return tree
@@ -1464,6 +1689,355 @@ def train_phase(card: str) -> None:
     if any(launched.values()):
         raise AssertionError(f"the train phase launched a kernel: "
                              f"{launched}")
+
+
+# -- phase 10: the LM families -----------------------------------------------
+# On CPU tensors ``ops`` takes the plain versions, so these also run, at the
+# reduced size, in the CPU tests.
+
+def family_config(arch: str, full: bool = False):
+    """Pinned (``full`` false): ``arch`` reduced, in fp32, zamba2 with
+    ZAMBA2_PERIOD as its pattern.  Full: the published config in bf16,
+    its depth cut to FAMILIES_DEPTH where the card cannot hold it."""
+    cfg = configs.get(arch)
+    if full:
+        if arch in FAMILIES_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILIES_DEPTH[arch])
+        return cfg
+    cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    if arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, block_pattern=ZAMBA2_PERIOD,
+                                  n_layers=len(ZAMBA2_PERIOD))
+    return cfg
+
+
+def family_prompts(cfg, batch: int, prompt_len: int, seed: int
+                   ) -> np.ndarray:
+    """int32 prompts [batch, prompt_len] from ``default_rng(seed)``."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)
+
+
+def family_extras(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """The modality stubs of ``cfg``'s frontend as numpy arrays, drawn
+    from ``default_rng(seed)``: N_PATCHES patch embeddings (N(0, 0.02),
+    the token embeddings' scale) and their ``pos3`` for a VLM, the
+    patches an 8 x 8 grid (t 0, h its row, w its column) and the text
+    at the next position in all three streams, as Qwen2-VL places a
+    picture before its caption; ``max(8, prompt_len // 4)`` frames
+    (N(0, 1)) for an audio encoder-decoder; nothing otherwise."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "vision_patches":
+        side = math.isqrt(N_PATCHES)
+        grid = np.arange(N_PATCHES)
+        text = side + np.arange(prompt_len)
+        streams = [np.concatenate([np.zeros_like(grid), text]),
+                   np.concatenate([grid // side, text]),
+                   np.concatenate([grid % side, text])]
+        pos3 = np.broadcast_to(np.stack(streams)[:, None],
+                               (3, batch, N_PATCHES + prompt_len))
+        return {"extra_embeds": (rng.standard_normal(
+                    (batch, N_PATCHES, cfg.d_model)) * 0.02
+                    ).astype(np.float32),
+                "pos3": pos3.astype(np.int32)}
+    if cfg.frontend == "audio_frames":
+        frames = max(8, prompt_len // 4)
+        return {"enc_feats": rng.standard_normal(
+            (batch, frames, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def k6_calls(cfg, extras: dict, max_new: int) -> tuple:
+    """Flash-attention calls of one :func:`generate` run: (prefill, the
+    decode steps).  Prefill: every GQA self-attention (``attn``, ``moe``,
+    ``xdec`` and ``sattn`` blocks; MLA takes its einsum product), and
+    with frames the encoder's layers and each ``xdec`` block's
+    cross-attention.  Decode: with frames, the encoder once more (for
+    ``enc_out``) and each ``xdec`` block's cross-attention a step (a
+    single query token: the self-attention of a decode step is the
+    masked product over the cache)."""
+    self_attn = 0 if cfg.mla else sum(
+        kind in ("attn", "moe", "xdec", "sattn") for kind in cfg.pattern)
+    if not (cfg.enc_layers and "enc_feats" in extras):
+        return self_attn, 0
+    cross = sum(kind == "xdec" for kind in cfg.pattern)
+    return (self_attn + cfg.enc_layers + cross,
+            cfg.enc_layers + cross * (max_new - 1))
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Record, for the duration, each MoE layer's routed (token, expert)
+    pairs, the pairs kept by the capacity bound, and the smallest margin
+    between a token's k-th and (k+1)-th gate; and for each logits of the
+    model's last position, the smallest margin between the top two.
+    Yields a dict of lists of tensors (``pairs`` ints)."""
+    route, logits_of = layers.moe_route, M.logits_of
+    rec = {"pairs": [], "kept": [], "gate_margin": [], "logit_margin": []}
+
+    def recording_route(p, cfg, xf, capacity_factor=1.25):
+        r = route(p, cfg, xf, capacity_factor)
+        k = cfg.experts_per_tok
+        top = torch.topk(r.gates, k + 1, dim=-1).values
+        rec["pairs"].append(r.keep.numel())
+        rec["kept"].append(r.keep.sum())
+        rec["gate_margin"].append((top[:, k - 1] - top[:, k]).min())
+        return r
+
+    def recording_logits(cfg, params, h):
+        lg = logits_of(cfg, params, h)
+        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+        rec["logit_margin"].append((top[:, 0] - top[:, 1]).min())
+        return lg
+
+    layers.moe_route, M.logits_of = recording_route, recording_logits
+    try:
+        yield rec
+    finally:
+        layers.moe_route, M.logits_of = route, logits_of
+
+
+def routing_summary(rec) -> dict:
+    """The share of routed pairs the capacity bound dropped (None without
+    MoE) and the smallest gate and logit margins of a recorded run."""
+    pairs = sum(rec["pairs"])
+    kept = int(sum(int(k) for k in rec["kept"]))
+
+    def least(key):
+        return (float(torch.stack(rec[key]).min()) if rec[key] else None)
+    return {"dropped_share": (pairs - kept) / pairs if pairs else None,
+            "pairs": pairs, "dropped": pairs - kept,
+            "gate_margin": least("gate_margin"),
+            "logit_margin": least("logit_margin")}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def generate(cfg, params, tokens: np.ndarray, extras: dict, max_new: int,
+             device) -> dict:
+    """Greedy generation through the step functions a server calls:
+    ``build_prefill_step`` on the prompts and their stubs, then
+    ``max_new - 1`` steps of ``build_serve_step``, cross-attending to
+    ``encode(...)`` of the frames when there are any (the JAX package's
+    prefill does not return the encoder's output).  Returns each row's
+    tokens, the prefill's last-token logits (fp32, on the host), the wall
+    seconds of prefill (to its first tokens on the host) and of the
+    decode steps, and the flash-attention launches of each."""
+    batch = {"tokens": torch.from_numpy(tokens).to(device, torch.int64)}
+    batch.update({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                  for k, v in extras.items()})
+    b, seq = tokens.shape
+    if "extra_embeds" in extras:
+        seq += extras["extra_embeds"].shape[1]
+    caches = M.init_cache(cfg, b, seq + max_new, device)
+    prefill_fn, serve_fn = build_prefill_step(cfg), build_serve_step(cfg)
+    _sync(device)
+    launches0 = ops.launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, caches, batch)
+    nxt = torch.argmax(logits[:, -1], dim=-1)
+    out = [nxt.tolist()]                          # waits for the device
+    prefill_s = time.perf_counter() - t0
+    launches1 = ops.launch_counts()["flash_attention"]
+    enc_out = None
+    if "enc_feats" in batch:
+        feats = batch["enc_feats"]
+        enc_out = M.encode(cfg, params, feats.to(M.torch_dtype(cfg)),
+                           torch.arange(feats.shape[1], device=device)
+                           .expand(feats.shape[:2]))
+    steps = []
+    for step in range(max_new - 1):
+        step_logits, caches = serve_fn(params, caches, nxt, seq + step,
+                                       enc_out)
+        nxt = torch.argmax(step_logits, dim=-1)
+        steps.append(nxt)
+    if steps:
+        out += torch.stack(steps, dim=1).T.tolist()
+    _sync(device)
+    decode_s = time.perf_counter() - t0 - prefill_s
+    return {"tokens": [list(row) for row in zip(*out)],
+            "logits": logits[:, -1].float().cpu(), "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "launches": (launches1 - launches0,
+                         ops.launch_counts()["flash_attention"] - launches1)}
+
+
+def einsum_prefill_logits(cfg, params, tokens: np.ndarray, extras: dict,
+                          device) -> torch.Tensor:
+    """The prefill's last-token logits with every attention through the
+    einsum path (``flash=False``), fp32 on the host."""
+    kw = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+          for k, v in extras.items()}
+    b, seq = tokens.shape
+    if "extra_embeds" in extras:
+        seq += extras["extra_embeds"].shape[1]
+    logits, _ = M.prefill(cfg, params, torch.from_numpy(tokens).to(
+        device, torch.int64), M.init_cache(cfg, b, seq, device), **kw,
+        flash=False)
+    return logits[:, -1].float().cpu()
+
+
+def families_pinned(arch: str, device) -> dict:
+    """Phase 10 (a) for ``arch``: the serving loop at SERVE_PINNED's sizes
+    on the pinned config and weights (``jax_layout_params(cfg, seed=0)``,
+    the prompts of ``serve(seed=0)``), and for FAMILIES_EXTRAS
+    :func:`generate` at FAMILIES_PINNED_EXTRAS with the stubs of
+    ``family_extras(seed=0)``.  Each run's tokens per request and its
+    routing summary."""
+    cfg = family_config(arch)
+    params = M.params_from_numpy(cfg, jax_layout_params(cfg, seed=0),
+                                 device)
+    p = SERVE_PINNED
+    with routing_recorded() as rec:
+        done = serve_requests(cfg, params, make_requests(
+            cfg, p["n_requests"], p["prompt_len"], p["max_new"], seed=0),
+            p["batch"], p["prompt_len"], p["max_new"], device)
+    runs = {"serve": ([r.generated for r in done], routing_summary(rec))}
+    if arch in FAMILIES_EXTRAS:
+        e = FAMILIES_PINNED_EXTRAS
+        with routing_recorded() as rec:
+            res = generate(cfg, params, family_prompts(
+                cfg, e["batch"], e["prompt_len"], seed=0), family_extras(
+                cfg, e["batch"], e["prompt_len"], seed=0), e["max_new"],
+                device)
+        runs["extras"] = (res["tokens"], routing_summary(rec))
+    return runs
+
+
+def families_full(arch: str, device, sizes: dict, model=None) -> dict:
+    """Phase 10 (b) for ``arch`` at ``sizes`` (FAMILIES_FULL on the card)
+    on ``family_config(arch, full=True)`` with random weights from seed 0
+    (or on ``model``, a (cfg, params) pair the caller made): a timed
+    :func:`generate` run under :func:`routing_recorded`, a second run
+    with every flash-attention
+    call's operands and result kept, and the einsum path's prefill
+    logits.  The model is freed before it returns."""
+    if model is None:
+        cfg = family_config(arch, full=True)
+        params = M.init_params(cfg, torch.Generator(device).manual_seed(0))
+    else:
+        cfg, params = model
+    tokens = family_prompts(cfg, sizes["batch"], sizes["prompt_len"], 0)
+    extras = family_extras(cfg, sizes["batch"], sizes["prompt_len"], 0)
+    with routing_recorded() as rec:
+        res = generate(cfg, params, tokens, extras, sizes["max_new"],
+                       device)
+    res["routing"] = routing_summary(rec)
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.device(device).type == "cuda" else None)
+    calls = []
+    kernel = ops.flash_attention
+
+    def record(q, k, v, causal=True, scale=None):
+        out = kernel(q, k, v, causal=causal, scale=scale)
+        calls.append((q, k, v, causal, out))
+        return out
+
+    with attention_through(record):
+        again = generate(cfg, params, tokens, extras, sizes["max_new"],
+                         device)
+    res["calls"] = calls
+    res["again_tokens"] = again["tokens"]
+    res["einsum_logits"] = einsum_prefill_logits(cfg, params, tokens,
+                                                 extras, device)
+    res["k6_calls"] = k6_calls(cfg, extras, sizes["max_new"])
+    res["stubs"] = sorted(extras)
+    res["n_params"] = sum(t.numel() for t in pytree.tree_leaves(params))
+    res["cfg"] = cfg
+    del params
+    return res
+
+
+def families_phase(card: str, records: dict) -> None:
+    """Phase 10 on the card (``card``: the nvidia-smi name and power
+    limit); adds the full-width runs' flash-attention launches to
+    ``records``; raises where a check fails."""
+    phase("families")
+    t_phase = time.perf_counter()
+    # (a) pinned: reduced, fp32, the JAX package's token digests
+    for arch in FAMILY_ARCHS:
+        ops.reset_launch_counts()
+        for run, (tokens, routing) in families_pinned(arch, "cuda").items():
+            digests = token_digests(tokens)
+            print(f"pinned {run} (reduced {arch}, fp32): tokens {tokens}; "
+                  f"flash_attention launches so far "
+                  f"{ops.launch_counts()['flash_attention']}")
+            if digests != FAMILIES_REFERENCE[arch][run]:
+                raise AssertionError(
+                    f"pinned {run} of {arch}: tokens differ from the JAX "
+                    f"package's ({digests}); smallest top-k gate margin "
+                    f"{routing['gate_margin']!r}, smallest logit margin "
+                    f"{routing['logit_margin']!r}")
+    # (b) published widths, bf16, random weights from seed 0
+    sizes = FAMILIES_FULL
+    for arch in FAMILY_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = families_full(arch, "cuda", sizes)
+        cfg = res["cfg"]
+        want = FAMILIES_K6[arch]
+        if res["launches"] != want or res["k6_calls"] != want:
+            raise AssertionError(f"{arch}: flash_attention launches "
+                                 f"{res['launches']} (prefill, decode), "
+                                 f"by the config {res['k6_calls']}; want "
+                                 f"{want}")
+        if len(res["calls"]) != sum(want):
+            raise AssertionError(f"{arch}: the recorded run made "
+                                 f"{len(res['calls'])} calls")
+        worst, shapes = 0.0, {}
+        for q, k, v, causal, out in res["calls"]:
+            plain = ref.flash_attention_plain(q, k, v, causal=causal)
+            err = float((out.float() - plain.float()).abs().max())
+            tol = ATTN_TOL[q.dtype]
+            if not torch.allclose(out.float(), plain.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"{arch}: a flash_attention call "
+                                     f"{tuple(q.shape)} x {tuple(k.shape)} "
+                                     f"is off by {err!r}")
+            worst = max(worst, err)
+            key = (tuple(q.shape), k.shape[1], causal)
+            shapes[key] = shapes.get(key, 0) + 1
+        del res["calls"]
+        logits, einsum = res["logits"], res["einsum_logits"]
+        if not (torch.isfinite(logits).all() and
+                torch.isfinite(einsum).all()):
+            raise AssertionError(f"{arch}: logits not finite")
+        diff = float((logits - einsum).abs().max())
+        scale = float(einsum.abs().max())
+        if diff > FAMILIES_LOGIT_RTOL * scale:
+            raise AssertionError(f"{arch}: last-token logits through the "
+                                 f"kernel are {diff!r} from the einsum "
+                                 f"path's (largest |logit| {scale!r})")
+        b, s, new = sizes["batch"], sizes["prompt_len"], sizes["max_new"]
+        decode_ms = res["decode_s"] / (new - 1) * 1e3
+        wall = res["prefill_s"] + res["decode_s"]
+        cut = (f"depth cut {configs.get(arch).n_layers} -> {cfg.n_layers}"
+               if arch in FAMILIES_DEPTH else "whole depth")
+        routing = res["routing"]
+        print(f"full {arch} ({cut}, {len(cfg.pattern)} blocks, d "
+              f"{cfg.d_model}, {res['n_params']} parameters, bf16, batch "
+              f"{b} x {s} tokens + stubs {res['stubs']}, {new} new) on "
+              f"[{card}]: prefill "
+              f"{res['prefill_s'] * 1e3:.3f} ms, decode {decode_ms:.3f} ms "
+              f"a step ({new - 1} steps), {b * new / wall:.2f} tokens/s; "
+              f"peak memory {res['peak_bytes']} B; flash_attention "
+              f"launches {res['launches']} (prefill, decode), calls by "
+              f"(q shape, Sk, causal) {shapes}, max |kernel - plain| "
+              f"{worst!r}; last-token logits max |kernel path - einsum "
+              f"path| {diff!r} (largest |logit| {scale!r}); MoE pairs "
+              f"dropped by capacity {routing['dropped']} of "
+              f"{routing['pairs']} (share {routing['dropped_share']!r}); "
+              f"tokens {res['tokens']} (the recorded run's equal: "
+              f"{res['again_tokens'] == res['tokens']}); in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        records["flash_attention"]["launches"] += sum(res["launches"])
+        del res
+    print(f"families phase in {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -1964,6 +2538,38 @@ def main() -> int:
                 "library_ms": lib_ms}
             attn_ms = ms
         del q, k, v, got, want
+    # the same, bf16, at each shape of phase 10 with its own mask
+    for heads, sq, sk, dh, causal in FAMILY_ATTN:
+        q, k, v = (torch.from_numpy(rng.standard_normal((heads, s_, dh))
+                                    .astype(np.float32)).to(
+                                        "cuda", torch.bfloat16)
+                   for s_ in (sq, sk, sk))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_plain(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[torch.bfloat16]
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention {[heads, sq, sk, dh]} "
+                                 f"causal={causal}: max |kernel - plain| "
+                                 f"{err!r}")
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                     20, clock_hz)
+        plain_ms = time_ms(lambda: ref.flash_attention_plain(
+            q, k, v, causal=causal), 2, clock_hz, rounds=3)
+        lib_ms = time_ms(lambda: sdpa(q[None], k[None], v[None],
+                                      is_causal=causal), 20, clock_hz)
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = 4 * dh * heads * attn_pairs(sq, sk, causal)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+        print(f"flash_attention family {[heads, sq, sk, dh]} bf16 causal="
+              f"{causal} kernel {ms:.6f} ms  plain {plain_ms:.6f} ms  "
+              f"library (sdpa) {lib_ms:.6f} ms  bound "
+              f"{max(bytes_ms, ops_ms):.6f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes "
+              f"{bytes_ms:.6f}, ops {ops_ms:.6f}: {flops} flops)  "
+              f"max_abs_err {err!r}  [{card}]", flush=True)
+        del q, k, v, got, want
 
     # -- 4. pipeline: each workload at paper scale through the entry points
     phase("pipeline")
@@ -2192,6 +2798,9 @@ def main() -> int:
 
     # -- 9. LM training: AdamW steps, checkpoint restart, full width ---------
     train_phase(card)
+
+    # -- 10. the LM families: pinned digests, published widths -------------
+    families_phase(card, records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

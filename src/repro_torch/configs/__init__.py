@@ -3,8 +3,7 @@
 One module per architecture with the exact published config; ``get(name)``
 returns the ArchConfig, ``ARCHS`` lists all ids.  A copy, as data, of the
 JAX package's configurations; the model (:mod:`repro_torch.models.model`)
-runs the dense decoder-only ones and raises ``NotImplementedError`` for the
-rest until their slice is ported.
+runs every one of them.
 """
 from __future__ import annotations
 

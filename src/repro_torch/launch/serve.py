@@ -6,7 +6,11 @@ with prompts of one length are taken from the queue a batch at a time; the
 batch is prefilled once, then decoded step by step, each request retiring
 at its token budget.  Reports throughput and per-request latency
 percentiles, and the wall time spent in prefill (each batch up to its
-first tokens on the host) and in decode.
+first tokens on the host) and in decode.  Any ``--arch`` serves; as in
+the JAX package's loop, the prompts carry no modality stubs, so a VLM
+serves text alone and an encoder-decoder decodes without
+cross-attention (the steps of :mod:`repro_torch.launch.steps` take the
+stubs where a caller has them).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --requests 16 --batch 4 --max-new 16 [--full] [--device cpu]

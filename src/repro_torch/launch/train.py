@@ -1,11 +1,14 @@
 """Training driver.
 
-End-to-end training of any dense ``--arch`` (reduced config by default)
+End-to-end training of any ``--arch`` (reduced config by default)
 with checkpoint/restart, deterministic data, straggler monitoring, and
 optional fault injection; on the GPU the same driver runs the full config.
 The counterpart of the JAX package's ``repro/launch/train.py``: it prints
 the same ``[train]`` lines, with each step's wall time taken after the
-step's loss has reached the host.
+step's loss has reached the host.  Its batches are the synthetic stream's
+tokens and labels only, as in the JAX package: a VLM trains without patch
+stubs and an encoder-decoder without frames (its encoder and
+cross-attention then get zero gradients).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 100 --batch 8 --seq 64 --ckpt-dir ckpt [--device cpu]

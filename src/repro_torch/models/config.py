@@ -7,7 +7,7 @@ encoder-decoder (audio) and VLM backbones with M-RoPE.  ``reduced()``
 returns the family-preserving small config used by CPU smoke tests.
 
 A copy of the JAX package's schema, field for field (the tests hold the
-two equal); the port runs the dense decoder-only subset so far.
+two equal).
 """
 from __future__ import annotations
 

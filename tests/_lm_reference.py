@@ -20,15 +20,21 @@ from repro.models import model as RM
 DENSE_ARCHS = ("tinyllama-1.1b", "qwen3-4b", "llama2-7b")
 
 
-def jax_config(arch: str, dtype: str = "float32"):
-    return dataclasses.replace(repro_configs.get(arch).reduced(), dtype=dtype)
+def jax_config(arch: str, dtype: str = "float32", pattern=None):
+    """Reduced ``arch`` in ``dtype``; ``pattern`` replaces its block
+    pattern (and depth)."""
+    cfg = dataclasses.replace(repro_configs.get(arch).reduced(), dtype=dtype)
+    if pattern is not None:
+        cfg = dataclasses.replace(cfg, block_pattern=tuple(pattern),
+                                  n_layers=len(pattern))
+    return cfg
 
 
 @functools.lru_cache(maxsize=None)
-def jax_params(arch: str, seed: int = 1):
-    """The JAX package's initial parameters of reduced ``arch`` in fp32,
-    as a tree of numpy arrays."""
-    cfg = jax_config(arch)
+def jax_params(arch: str, seed: int = 1, pattern=None):
+    """The JAX package's initial parameters of reduced ``arch`` (with
+    ``pattern``, if given) in fp32, as a tree of numpy arrays."""
+    cfg = jax_config(arch, pattern=pattern)
     params = jax.jit(RM.init_params, static_argnums=0)(
         cfg, jax.random.PRNGKey(seed))
     return jax.tree_util.tree_map(np.asarray, params)
@@ -62,3 +68,35 @@ def serve_tokens(cfg, tree, prompts, batch: int, prompt_len: int,
             nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         out += generated
     return out
+
+
+def extras_tokens(cfg, tree, tokens, extras, max_new: int):
+    """The greedy tokens of each row of ``tokens`` from the JAX package's
+    prefill step on the prompts with their stubs ``extras`` (numpy), then
+    ``max_new - 1`` of its serve steps, cross-attending to ``encode`` of
+    the frames when there are any: the JAX counterpart of
+    ``chip_smoke.generate``."""
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    prefill_fn = jax.jit(build_prefill_step(cfg))
+    serve_fn = jax.jit(build_serve_step(cfg))
+    b, seq = tokens.shape
+    if "extra_embeds" in extras:
+        seq += extras["extra_embeds"].shape[1]
+    batch = {"tokens": jnp.asarray(tokens)}
+    batch.update({k: jnp.asarray(v) for k, v in extras.items()})
+    caches = RM.init_cache(cfg, b, seq + max_new)
+    logits, caches = prefill_fn(params, caches, batch)
+    nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+    enc_out = None
+    if "enc_feats" in extras:
+        feats = batch["enc_feats"].astype(jnp.dtype(cfg.dtype))
+        enc_out = jax.jit(RM.encode, static_argnums=0)(
+            cfg, params, feats, jnp.broadcast_to(
+                jnp.arange(feats.shape[1]), feats.shape[:2]))
+    out = [np.asarray(nxt)]
+    for step in range(max_new - 1):
+        logits, caches = serve_fn(params, caches, nxt,
+                                  jnp.int32(seq + step), enc_out)
+        nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out.append(np.asarray(nxt))
+    return np.stack(out, axis=1).tolist()

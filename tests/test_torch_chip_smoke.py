@@ -250,6 +250,116 @@ def test_serve_phase_rehearsed_on_the_cpu():
     assert all(len(t) == p["max_new"] for t in tokens)
 
 
+# -- phase 10: the LM families ------------------------------------------------
+
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_ARCHS)
+def test_families_reference_is_the_jax_packages(arch):
+    """The pinned digests are those of the JAX package's steps on the
+    smoke's numpy weights: its serving loop on the prompts of
+    ``serve(seed=0)``, and for the stubbed configs its prefill and serve
+    steps (decode cross-attending to ``encode``) on the smoke's prompts
+    and stubs."""
+    from _lm_reference import extras_tokens, jax_config, serve_tokens
+    cfg = chip_smoke.family_config(arch)
+    pattern = (chip_smoke.ZAMBA2_PERIOD if arch == "zamba2-1.2b" else None)
+    cfg_j = jax_config(arch, pattern=pattern)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    tree = chip_smoke.jax_layout_params(cfg, seed=0)
+    p = chip_smoke.SERVE_PINNED
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=p["prompt_len"],
+                            dtype=np.int32) for _ in range(p["n_requests"])]
+    want = chip_smoke.FAMILIES_REFERENCE[arch]
+    tokens = serve_tokens(cfg_j, tree, prompts, p["batch"], p["prompt_len"],
+                          p["max_new"])
+    assert chip_smoke.token_digests(tokens) == want["serve"]
+    assert set(want) == ({"serve", "extras"}
+                         if arch in chip_smoke.FAMILIES_EXTRAS else {"serve"})
+    if "extras" in want:
+        e = chip_smoke.FAMILIES_PINNED_EXTRAS
+        tokens = extras_tokens(
+            cfg_j, tree, chip_smoke.family_prompts(cfg, e["batch"],
+                                                   e["prompt_len"], 0),
+            chip_smoke.family_extras(cfg, e["batch"], e["prompt_len"], 0),
+            e["max_new"])
+        assert chip_smoke.token_digests(tokens) == want["extras"]
+
+
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_ARCHS)
+def test_pinned_families_equal_the_reference_on_the_cpu(arch):
+    before = ops.launch_counts()
+    runs = chip_smoke.families_pinned(arch, "cpu")
+    assert ops.launch_counts() == before            # plain versions only
+    assert set(runs) == set(chip_smoke.FAMILIES_REFERENCE[arch])
+    for run, (tokens, routing) in runs.items():
+        assert (chip_smoke.token_digests(tokens)
+                == chip_smoke.FAMILIES_REFERENCE[arch][run])
+        assert routing["logit_margin"] > 0
+        assert (routing["pairs"] > 0) == (arch in ("dbrx-132b",
+                                                   "deepseek-v2-236b"))
+
+
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_ARCHS)
+def test_jax_layout_params_has_the_jax_packages_tree(arch):
+    """The smoke's numpy weights have the leaves, paths and shapes of the
+    JAX package's init of the same config (and the dense draws are
+    phase 6's, pinned by SERVE_REFERENCE)."""
+    from repro.models import model as RM
+    cfg = chip_smoke.family_config(arch)
+    tree = chip_smoke.jax_layout_params(cfg, seed=0)
+    shapes = jax.eval_shape(lambda k: RM.init_params(cfg, k),
+                            jax.random.PRNGKey(0))
+    got = jax.tree_util.tree_map(lambda a: a.shape, tree)
+    want = jax.tree_util.tree_map(lambda a: a.shape, shapes)
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(want))
+    assert got == want
+
+
+def test_k6_calls_of_the_full_configs_are_the_table():
+    """The launches phase 10 holds the card to, and the config's count of
+    them, without building a model."""
+    s = chip_smoke.FAMILIES_FULL
+    for arch, want in chip_smoke.FAMILIES_K6.items():
+        cfg = chip_smoke.family_config(arch, full=True)
+        extras = chip_smoke.family_extras(cfg, 1, s["prompt_len"], 0)
+        assert chip_smoke.k6_calls(cfg, extras, s["max_new"]) == want, arch
+    assert chip_smoke.family_config("dbrx-132b", full=True).n_layers == 4
+    assert set(chip_smoke.FAMILIES_K6) == set(chip_smoke.FAMILY_ARCHS)
+
+
+def test_attention_pairs_under_each_mask():
+    assert chip_smoke.attn_pairs(1024, 1024, True) == 1024 * 1025 // 2
+    assert chip_smoke.attn_pairs(1, 256, True) == 1
+    assert chip_smoke.attn_pairs(1, 256, False) == 256
+    assert chip_smoke.attn_pairs(4, 2, True) == 1 + 2 + 2 + 2
+
+
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_ARCHS)
+def test_families_phase_rehearsed_on_the_cpu(arch):
+    """Phase 10's full-width plumbing at the reduced size in fp32: the
+    recorded run makes the config's flash-attention calls, each equal to
+    the plain version on the CPU, the logits are finite and the einsum
+    path's, and nothing is launched."""
+    cfg = chip_smoke.family_config(arch)
+    params = chip_smoke.M.init_params(cfg, torch.Generator().manual_seed(0))
+    sizes = dict(chip_smoke.FAMILIES_FULL, batch=2, prompt_len=32)
+    res = chip_smoke.families_full(arch, "cpu", sizes, model=(cfg, params))
+    assert res["launches"] == (0, 0)
+    assert len(res["calls"]) == sum(res["k6_calls"])
+    assert (res["k6_calls"][1] > 0) == (arch == "seamless-m4t-medium")
+    for q, k, v, causal, out in res["calls"]:
+        assert torch.equal(out, chip_smoke.ref.flash_attention_plain(
+            q, k, v, causal=causal))
+    assert torch.isfinite(res["logits"]).all()
+    torch.testing.assert_close(res["logits"], res["einsum_logits"],
+                               atol=1e-4, rtol=1e-4)
+    assert res["again_tokens"] == res["tokens"]
+    assert [len(t) for t in res["tokens"]] == [sizes["max_new"]] * 2
+    assert chip_smoke.ops.flash_attention is ops.flash_attention
+    assert chip_smoke.layers.moe_route is chip_smoke.M.L.moe_route
+
+
 # -- phase 9: the LM training path --------------------------------------------
 
 @pytest.mark.parametrize("microbatches", sorted(chip_smoke.TRAIN_LM_REFERENCE))

@@ -101,10 +101,12 @@ def test_serve_without_device_needs_a_gpu():
 
 
 def test_lm_modules_are_covered():
-    """The isolation scan reaches the LM slice's modules and the kernel's
-    CUDA source sits beside the others."""
+    """The isolation scan reaches the LM slice's modules (the families'
+    Mamba2/xLSTM blocks among them) and the kernel's CUDA source sits
+    beside the others."""
     names = {_module_name(p) for p in PORT_FILES}
     assert {"repro_torch.models.model", "repro_torch.models.layers",
+            "repro_torch.models.ssm",
             "repro_torch.models.config", "repro_torch.configs",
             "repro_torch.configs.tinyllama_1_1b", "repro_torch.launch.serve",
             "repro_torch.launch.steps", "repro_torch.kernels.attention"} \

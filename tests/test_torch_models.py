@@ -1,7 +1,8 @@
 """The port's LM model stack against the JAX package's: the config copies,
-the dense layers, and the whole dense model (forward, prefill, decode) on
-the JAX package's own initial parameters, carried across with
-``params_from_numpy``.
+every config's parameters and caches, the dense layers, and the whole
+dense model (forward, prefill, decode) on the JAX package's own initial
+parameters, carried across with ``params_from_numpy`` (the other families:
+``tests/test_torch_{moe,ssm,families}.py``).
 
 Tolerances: layers 1e-5 and whole-model logits 1e-4, fp32 on the CPU; the
 two frameworks sum matrix products and softmaxes in different orders, and
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 from _lm_reference import (DENSE_ARCHS, jax_config,  # noqa: E402
                            jax_params)
 from repro import configs as repro_configs  # noqa: E402
@@ -80,21 +82,79 @@ def test_every_config_equals_the_jax_packages(arch):
         assert a.sub_quadratic == b.sub_quadratic
 
 
-@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
-                                  if repro_configs.get(a).family != "dense"])
-def test_configs_the_port_cannot_run_yet_raise(arch):
-    cfg = configs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.init_cache(cfg, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
-
-
 def test_every_dense_config_runs():
+    """The dense configs this file holds against the JAX package are
+    dense, and each builds its parameters and cache on the CPU."""
     dense = [a for a in ALL_ARCHS if repro_configs.get(a).family == "dense"]
     assert set(DENSE_ARCHS) <= set(dense)
     for arch in dense:
-        M.check_supported(configs.get(arch))
+        cfg = configs.get(arch).reduced()
+        p = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert len(p["layers"]) == cfg.n_layers
+        assert len(M.init_cache(cfg, 1, 4, "cpu")) == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_builds_its_cache_and_parameters(arch):
+    """All eleven configs, reduced, on the CPU: one layer entry and one
+    cache or state per block of the pattern, the shared block and the
+    encoder where the config has them, and the parameter tree of the
+    JAX package's init (the same leaves with the same shapes, through
+    ``params_from_numpy``)."""
+    cfg = configs.get(arch).reduced()
+    p = M.init_params(cfg, torch.Generator().manual_seed(0))
+    assert len(p["layers"]) == len(M.init_cache(cfg, 1, 4, "cpu")) == len(
+        cfg.pattern)
+    assert ("shared_attn" in p) == bool(cfg.shared_attn_every)
+    assert len(p.get("encoder", [])) == cfg.enc_layers
+    shapes = jax.eval_shape(lambda k: RM.init_params(
+        repro_configs.get(arch).reduced(), k), jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32),
+                                  shapes)
+    want = M.params_from_numpy(cfg, tree, "meta")
+
+    def leaves(params):
+        flat, _ = pytree.tree_flatten_with_path(params)
+        return {pytree.keystr(path): (t.shape, t.dtype) for path, t in flat}
+    assert leaves(p) == leaves(want)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_runs_every_entry_point(arch):
+    """All eleven configs, reduced, on the CPU, with the stubs
+    ``extra_inputs`` describes: ``forward``, the prefill and serve steps
+    (decode cross-attending to ``encode`` where there are frames), and
+    one train step of ``lm_loss``; every output finite."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    cfg = configs.get(arch).reduced()
+    p = M.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    extras = {k: (torch.randn(v.shape, generator=g)
+                  if v.dtype.is_floating_point
+                  else torch.arange(v.shape[-1]).expand(v.shape))
+              for k, v in steps.extra_inputs(cfg, B, S).items()}
+    seq = S + (extras["extra_embeds"].shape[1] if "extra_embeds" in extras
+               else 0)
+    h, _ = M.forward(cfg, p, M.embed(cfg, p, tok),
+                     torch.arange(S).expand(B, S))
+    assert h.shape == (B, S, cfg.d_model) and torch.isfinite(h).all()
+    caches = M.init_cache(cfg, B, seq + 1, "cpu")
+    logits, caches = steps.build_prefill_step(cfg)(
+        p, caches, dict(extras, tokens=tok))
+    enc_out = None
+    if "enc_feats" in extras:
+        feats = extras["enc_feats"].to(M.torch_dtype(cfg))
+        enc_out = M.encode(cfg, p, feats, torch.arange(
+            feats.shape[1]).expand(feats.shape[:2]))
+    step_logits, _ = steps.build_serve_step(cfg)(
+        p, caches, logits[:, -1].argmax(-1), seq, enc_out)
+    assert step_logits.shape == (B, cfg.vocab)
+    assert torch.isfinite(logits).all() and torch.isfinite(step_logits).all()
+    _, _, metrics = steps.build_train_step(cfg, 3)(
+        p, adamw_init(p), dict(extras, tokens=tok, labels=tok))
+    assert np.isfinite(float(metrics["loss"]))
 
 
 # -- layers -------------------------------------------------------------------
