@@ -116,7 +116,22 @@ last line:
    finite and within ``FAMILIES_LOGIT_RTOL`` of the einsum path's; the
    prefill and decode times, tokens/s, peak memory and the MoE share of
    (token, expert) pairs dropped by capacity are printed beside the
-   card's name and power limit.
+   card's name and power limit;
+11. planning — distributed planning (``repro_torch.launch.dryrun``):
+   three production cells, each a DTensor program on rank 0 of a fake
+   process group of the mesh's size (256 or 512 ranks), its arguments
+   DTensors with fake local shards, counted by
+   ``repro_torch.launch.costing`` (flops, op bytes and collective bytes a
+   device, peak bytes a device): tinyllama-1.1b ``train_4k`` on 16 x 16,
+   deepseek-v2-236b ``decode_32k`` on 2 x 16 x 16 (the pod axis, MLA
+   caches, the expert-parallel MoE), zamba2-1.2b ``long_500k`` on 16 x 16
+   (sharded SSM state); each record printed, its per-device argument
+   bytes held equal to the JAX package's (``PLANNING_REFERENCE``).  Then
+   deepseek-v2-236b's MoE layer at its published width on 4 x 1024
+   tokens, through the single-device path and through the
+   expert-parallel path on a 1 x 1 mesh over a one-rank NCCL group: the
+   two outputs bit-equal, their CUDA-event times and the peak memory
+   printed beside the card's name and power limit.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -577,6 +592,31 @@ REPLACES = {"bitserial_add": "src/repro/kernels/bitserial.py:19",
             "search_pages": "src/repro/kernels/search.py:24",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:18",
             "flash_attention": "src/repro/kernels/attention.py:21"}
+
+
+# Phase 11, distributed planning.  (a) The dry-run cells, each on rank 0
+# of a fake process group of the mesh's size (arch, shape, multi_pod):
+# FSDP and tensor-parallel training; the pod axis, MLA caches and the
+# expert-parallel MoE; the sub-quadratic cell with sharded SSM state.
+PLANNING_CELLS = (("tinyllama-1.1b", "train_4k", False),
+                  ("deepseek-v2-236b", "decode_32k", True),
+                  ("zamba2-1.2b", "long_500k", False))
+# the fake mesh's device type: the card's, so that DTensor moves a shard
+# from one dim to another by an all-to-all (a cpu mesh gathers instead)
+PLANNING_MESH_DEVICE = "cuda"
+# The JAX package's per-device argument bytes of each cell: its
+# input_specs on the production mesh, each leaf's shard under its
+# PartitionSpec, summed (the decode position an int32 scalar);
+# tests/test_torch_chip_smoke.py recomputes them from the JAX package
+PLANNING_REFERENCE = {("tinyllama-1.1b", "train_4k", "16x16"): 44412932,
+                      ("deepseek-v2-236b", "decode_32k", "2x16x16"):
+                          1502773780,
+                      ("zamba2-1.2b", "long_500k", "16x16"): 1624541192}
+# (b) deepseek-v2-236b's MoE layer at its published width on one batch of
+# 4 x 1024 tokens: t * k = 24576 > 1024, so the single-device path and the
+# expert-parallel path (a 1 x 1 mesh over a one-rank NCCL group) both
+# bound each expert at int(1.25 * 24576 / 160) = 192 slots
+PLANNING_MOE = {"arch": "deepseek-v2-236b", "batch": 4, "seq": 1024}
 
 
 def phase(name: str) -> None:
@@ -2040,6 +2080,133 @@ def families_phase(card: str, records: dict) -> None:
     print(f"families phase in {time.perf_counter() - t_phase:.3f} s")
 
 
+def moe_layer(cfg, device, dtype, seed: int = 0):
+    """One MoE layer's parameters (router, routed and shared experts) from
+    a seed, as ``layers.moe_init`` makes them, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return layers.moe_init(gen, cfg, dtype)
+
+
+def moe_two_paths(cfg, p, x, backend: str, device_type: str):
+    """``layers.moe_apply`` of ``x`` through the single-device path, and
+    through the expert-parallel path on a 1 x 1 (data, model)
+    ``DeviceMesh`` over a one-rank ``backend`` process group, with the
+    inputs as DTensors laid out by the sharding plan.  Returns (the
+    single-device output, a function that runs the expert-parallel path
+    and returns its local output); the caller destroys the group
+    (``dist.destroy_process_group``) when done."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import mesh as MS, sharding as SH
+
+    layers.set_mesh_axes((), None)
+    single = layers.moe_apply(p, cfg, x)
+    with socket.socket() as sock:            # a free port on this host
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    dmesh = MS.make_mesh((1, 1), ("data", "model"), device_type)
+    specs = SH.param_specs(p, dmesh)
+
+    def place(t, spec):
+        return DTensor.from_local(t, dmesh, SH.placements(spec, dmesh),
+                                  run_check=False)
+
+    p_d = SH.map_with_path(lambda path, t: place(t, SH.at_path(specs, path)),
+                           p)
+    x_d = place(x, SH.embeds_spec(x.shape, dmesh))
+
+    def expert_parallel():
+        layers.set_mesh_axes(*MS.mesh_axes(dmesh))
+        try:
+            with implicit_replication():
+                return layers.moe_apply(p_d, cfg, x_d).full_tensor()
+        finally:
+            layers.set_mesh_axes((), None)
+
+    return single, expert_parallel
+
+
+def planning_phase(card: str) -> None:
+    """Phase 11 on the card's host and the card (``card``: the nvidia-smi
+    name and power limit); raises where a check fails."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    phase("planning")
+    t_phase = time.perf_counter()
+    # (a) the dry-run cells on the fake process group
+    for arch, shape, multi in PLANNING_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi,
+                              device=PLANNING_MESH_DEVICE)
+        print(f"dry-run {arch} {shape} {rec['mesh']} in "
+              f"{time.perf_counter() - t0:.3f} s: {json.dumps(rec)}",
+              flush=True)
+        want = PLANNING_REFERENCE[(arch, shape, rec["mesh"])]
+        if rec["argument_size_in_bytes"] != want:
+            raise AssertionError(f"{arch} {shape} {rec['mesh']}: "
+                                 f"{rec['argument_size_in_bytes']} argument "
+                                 f"bytes a device, the JAX package's {want}")
+        if rec["flops"] <= 0 or rec["collectives"]["total"] <= 0:
+            raise AssertionError(f"{arch} {shape}: nothing counted")
+    if dist.is_initialized():
+        raise AssertionError("the fake process group outlived its cells")
+    # (b) the MoE layer at deepseek-v2-236b's width, both paths
+    cfg = configs.get(PLANNING_MOE["arch"])
+    b, s = PLANNING_MOE["batch"], PLANNING_MOE["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = moe_layer(cfg, "cuda", torch.bfloat16)
+    x = torch.randn((b, s, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)
+                    ).to(torch.bfloat16)
+    single, expert_parallel = moe_two_paths(cfg, p, x, "nccl", "cuda")
+    try:
+        ep = expert_parallel()
+        equal = torch.equal(single, ep)
+        diff = float((single.float() - ep.float()).abs().max())
+        if not (torch.isfinite(single).all() and equal):
+            raise AssertionError(f"the expert-parallel MoE differs from the "
+                                 f"single-device path by {diff!r}")
+        times = {}
+        for label, fn in (("single-device",
+                           lambda: layers.moe_apply(p, cfg, x)),
+                          ("expert-parallel", expert_parallel)):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            runs = []
+            for _ in range(5):
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                runs.append(start.elapsed_time(end))
+            times[label] = statistics.median(runs)
+    finally:
+        dist.destroy_process_group()
+    n_exp = sum(t.numel() * t.element_size()
+                for t in pytree.tree_leaves(p["experts"]))
+    print(f"MoE {cfg.name} (d {cfg.d_model}, {cfg.n_experts} routed + "
+          f"{cfg.n_shared_experts} shared experts, top-"
+          f"{cfg.experts_per_tok}, expert d_ff {cfg.moe_d_ff}, "
+          f"{n_exp} B of bf16 routed experts) on {b} x {s} tokens on "
+          f"[{card}]: single-device {times['single-device']:.3f} ms, "
+          f"expert-parallel (1 x 1 mesh, NCCL) "
+          f"{times['expert-parallel']:.3f} ms (CUDA events, median of 5); "
+          f"bit-equal {equal} (max |diff| {diff!r}); peak memory "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    del p, x, single, ep
+    print(f"planning phase in {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2801,6 +2968,9 @@ def main() -> int:
 
     # -- 10. the LM families: pinned digests, published widths -------------
     families_phase(card, records)
+
+    # -- 11. distributed planning: the dry-run, the expert-parallel MoE ------
+    planning_phase(card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

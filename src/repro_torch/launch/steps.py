@@ -119,11 +119,14 @@ def build_train_step(cfg: ArchConfig, total_steps: int = 10_000,
     return train_step
 
 
-def build_prefill_step(cfg: ArchConfig) -> Callable:
-    """Prefill of ``batch["tokens"]`` with the batch's stubs, if any."""
+def build_prefill_step(cfg: ArchConfig, flash: bool = True) -> Callable:
+    """Prefill of ``batch["tokens"]`` with the batch's stubs, if any;
+    ``flash=False`` attends through the einsum path instead of the
+    kernel."""
     def prefill_step(params, caches, batch):
         return M.prefill(cfg, params, batch["tokens"], caches,
-                         **{k: batch[k] for k in EXTRAS if k in batch})
+                         **{k: batch[k] for k in EXTRAS if k in batch},
+                         flash=flash)
     return prefill_step
 
 

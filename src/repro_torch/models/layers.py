@@ -5,10 +5,18 @@ functions over plain dicts of tensors: RMSNorm, rotary embeddings (and
 Qwen2-VL's multimodal M-RoPE), GQA attention (optional qk-norm,
 cross-attention through ``kv_source``), DeepSeek-V2's multi-head latent
 attention (MLA), the SwiGLU MLP and the top-k token-choice MoE with its
-capacity-bounded dispatch.  The JAX package's sharding hints are not
-carried over (they are no-ops outside a mesh, and the port runs on one
-card), nor is its expert-parallel ``shard_map`` MoE path, which needs a
-mesh: the MoE here is the reference's single-device path.
+capacity-bounded dispatch.
+
+Sharding is expressed as in the JAX package, by hints on the canonical
+axes (batch/tokens -> ("pod", "data"), heads / ffn / experts -> "model"),
+which the launcher binds with :func:`set_mesh_axes`.  A hint is a DTensor
+``redistribute`` (``_maybe_shard``, :func:`shard_tokens`,
+:func:`shard_model_last`) and does nothing to a plain tensor; DTensor's
+sharding propagation places the rest and inserts the collectives that the
+dry-run counts (:mod:`repro_torch.launch.costing`).  On DTensors the MoE
+takes the reference's expert-parallel path (``_moe_routed_sharded``: each
+rank runs ``_moe_dispatch_local`` on its tokens and its experts, then one
+all-reduce over the model axis); on plain tensors, its single-device path.
 
 Attention over a whole sequence (``_sdpa``) takes one of two paths, chosen
 by the caller's ``flash`` argument.  Serving (``flash=True``) goes through
@@ -30,15 +38,126 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.launch.sharding import _fit, placements
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
+
+# Mesh axis names used by the sharding hints; the launcher rebinds these to
+# the active mesh (("pod","data") on the multi-pod mesh, ("data",) on the
+# single-pod mesh, () when running unsharded).
+_MESH_AXES = {"data": (), "model": None}
+
+
+def set_mesh_axes(data_axes: Tuple[str, ...], model_axis: Optional[str]):
+    _MESH_AXES["data"] = tuple(data_axes)
+    _MESH_AXES["model"] = model_axis
+
+
+def data_axes() -> Tuple[str, ...]:
+    return _MESH_AXES["data"]
+
+
+def model_axis() -> Optional[str]:
+    return _MESH_AXES["model"]
+
+
+def _maybe_shard(x: torch.Tensor, spec) -> torch.Tensor:
+    """Sharding hint: ``x`` redistributed to ``spec`` (axis assignments
+    that do not divide their dim dropped) if it is a DTensor, else ``x``."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(_fit(mesh, x.shape, spec), mesh))
+
+
+def shard_tokens(x: torch.Tensor) -> torch.Tensor:
+    da = data_axes()
+    if not da:
+        return x
+    if x.ndim >= 3 and model_axis():
+        # activation sharding: batch over data axes, features over model
+        return _maybe_shard(x, (da,) + (None,) * (x.ndim - 2)
+                            + (model_axis(),))
+    if x.ndim >= 2:
+        return _maybe_shard(x, (da,) + (None,) * (x.ndim - 1))
+    return x
+
+
+def shard_model_last(x: torch.Tensor) -> torch.Tensor:
+    da = data_axes()
+    if not da or not model_axis():
+        return x
+    return _maybe_shard(x, (da,) + (None,) * (x.ndim - 2) + (model_axis(),))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a gradient
+    that leaves ``on_shards`` becomes a DTensor's local shard, which
+    DTensor takes to be laid out as its global strides say."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def on_shards(fn, tensors, specs, out_spec, out_shape=None):
+    """``fn(*tensors)``, run on each rank's shards when the tensors are
+    DTensors: each is laid out by its spec (axis assignments that do not
+    divide dropped), ``fn`` runs on the local tensors and its output is the
+    DTensor of those shards laid out by ``out_spec``, fitted to
+    ``out_shape`` (default: the first tensor's shape).  Attention is
+    independent across batch rows and heads, so it runs whole on a rank's
+    shards of both, where DTensor's per-op rules would split its products
+    into strided layouts.  Plain tensors: ``fn(*tensors)``."""
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return fn(*tensors)
+    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    local = [_ContiguousGrad.apply(t.redistribute(
+        mesh, placements(_fit(mesh, t.shape, spec), mesh)).to_local())
+             for t, spec in zip(tensors, specs)]
+    out_pl = placements(_fit(mesh, out_shape or tensors[0].shape, out_spec),
+                        mesh)
+    return DTensor.from_local(fn(*local), mesh, out_pl, run_check=False)
+
+
+def heads_spec(x: torch.Tensor, groups: int) -> tuple:
+    """The layout of ``[B, S, H, dh]`` heads run on shards: batch over the
+    data axes, heads over the model axis where ``groups`` (the KV heads a
+    fold keeps together) divides over it, else whole on each rank."""
+    model = model_axis()
+    if isinstance(x, DTensor) and model:
+        mesh = x.device_mesh
+        model = _fit(mesh, (groups,), (model,))[0]
+    return (data_axes() or None, None, model, None)
+
+
+def split_heads(x: torch.Tensor, heads: int, dh: int) -> torch.Tensor:
+    """``x [B, S, heads * dh] -> [B, S, heads, dh]``.  A DTensor is first
+    laid out as ``heads_spec`` lays out its heads: a view cannot split a
+    dim whose shards would cut a head."""
+    x = _maybe_shard(x, heads_spec(x, heads)[:3])
+    return x.reshape(*x.shape[:2], heads, dh)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, S, H, dh] -> [B, S, H * dh]``, laid out as ``split_heads``
+    lays out its input: in the backward, the gradient takes that layout
+    before its view back onto the heads."""
+    b, s, h, dh = x.shape
+    return _maybe_shard(x.reshape(b, s, h * dh), heads_spec(x, h)[:3])
 
 
 # -- init ---------------------------------------------------------------------
@@ -213,11 +332,10 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
+    q = split_heads(x @ p["wq"], cfg.n_heads, dh)
     src = kv_source if kv_source is not None else x
-    sk = src.shape[1]
-    k = (src @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, dh)
-    v = (src @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, dh)
+    k = split_heads(src @ p["wk"], cfg.n_kv_heads, dh)
+    v = split_heads(src @ p["wv"], cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -228,6 +346,7 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         else:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
+    q = split_heads(shard_model_last(q.reshape(b, s, -1)), cfg.n_heads, dh)
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
     if cache is not None:
@@ -237,31 +356,47 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         cv[:, idx:idx + s] = v
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         if idx == 0 and s > 1:
-            out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                        causal=True, flash=flash)
+            out = _sdpa_on_shards(q, _repeat_kv(k, n_rep),
+                                  _repeat_kv(v, n_rep), True, flash)
         else:
-            # the group dim folded into q, the cache read once; products of
-            # the working type summed in fp32 (JAX: preferred_element_type)
-            qg = q.reshape(b, s, cfg.n_kv_heads, n_rep, dh)
-            smax = ck.shape[1]
-            kpos = torch.arange(smax, device=x.device)[None, :]
-            qpos = idx + torch.arange(s, device=x.device)[:, None]
-            mask = kpos <= qpos          # causal over the filled prefix
-            logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
-                                  ck.float()) / math.sqrt(dh)
-            logits = torch.where(mask, logits, -1e30)
-            probs = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bhrqk,bkhd->bqhrd",
-                               probs.to(x.dtype).float(), cv.float())
-            out = out.reshape(b, s, cfg.n_heads, dh).to(x.dtype)
+            spec = heads_spec(q, cfg.n_kv_heads)
+            out = on_shards(
+                lambda q_, k_, v_: _cached_attention(q_, k_, v_, idx),
+                (q, ck, cv), (spec,) * 3, spec)
     else:
-        kk = _repeat_kv(k, n_rep)
-        vv = _repeat_kv(v, n_rep)
-        out = _sdpa(q, kk, vv, causal=causal and kv_source is None,
-                    flash=flash)
+        out = _sdpa_on_shards(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                              causal and kv_source is None, flash)
         new_cache = None
-    out = out.reshape(b, s, cfg.n_heads * dh)
-    return out @ p["wo"], new_cache
+    return merge_heads(out) @ p["wo"], new_cache
+
+
+def _sdpa_on_shards(q, k, v, causal: bool, flash: bool):
+    """``_sdpa`` on each rank's batch rows and heads (``on_shards``)."""
+    spec = heads_spec(q, q.shape[2])
+    return on_shards(lambda q_, k_, v_: _sdpa(q_, k_, v_, causal, flash),
+                     (q, k, v), (spec,) * 3, spec)
+
+
+def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      idx: int) -> torch.Tensor:
+    """q [B,S,H,dh] at positions ``idx..`` over the whole cache ck, cv
+    [B,Smax,Hkv,dh] under the causal mask: the group dim folded into q, the
+    cache read once; products of the working type summed in fp32 (JAX:
+    ``preferred_element_type``)."""
+    b, s, h, dh = q.shape
+    n_kv = ck.shape[2]
+    qg = q.reshape(b, s, n_kv, h // n_kv, dh)
+    smax = ck.shape[1]
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    qpos = idx + torch.arange(s, device=q.device)[:, None]
+    mask = kpos <= qpos          # causal over the filled prefix
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
+                          ck.float()) / math.sqrt(dh)
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(q.dtype).float(),
+                       cv.float())
+    return out.reshape(b, s, h, dh).to(q.dtype)
 
 
 # -- MLA (DeepSeek-V2 multi-head latent attention) ----------------------------
@@ -308,7 +443,7 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         q = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
     else:
         q = x @ p["w_q"]
-    q = q.reshape(b, s, h, dh + rd)
+    q = split_heads(q, h, dh + rd)
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -330,31 +465,55 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         latent_all, k_rope_flat = latent, k_rope[:, :, 0, :]
         q_base = 0
 
-    k_nope = (latent_all @ p["w_uk"]).reshape(b, -1, h, dh).float()
-    v = (latent_all @ p["w_uv"]).reshape(b, -1, h, dh).float()
-    k_rope_flat = k_rope_flat.float()
+    if data_axes():
+        # the latent rows whole on each rank of the model axis (a cache
+        # holds its sequence there): a product over rows merged from two
+        # sharded dims would take DTensor a strided layout
+        latent_all = _maybe_shard(latent_all, (data_axes(), None, None))
+    k_nope = split_heads(latent_all @ p["w_uk"], h, dh)
+    v = split_heads(latent_all @ p["w_uv"], h, dh)
+    chunked = s > SDPA_CHUNK and s % SDPA_CHUNK == 0 and cache is None
+    spec = heads_spec(q_nope, h)
+    out = on_shards(
+        lambda qn, qr, kn, kr, v_: _mla_scores(qn, qr, kn, kr, v_, q_base,
+                                               chunked),
+        (q_nope, q_rope, k_nope, k_rope_flat, v),
+        (spec, spec, spec, spec[:2] + (None,), spec), spec)
+    return merge_heads(out) @ p["wo"], new_cache
+
+
+def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor,
+                q_base: int, chunked: bool) -> torch.Tensor:
+    """MLA's attention of q [B,S,H,dh] (+ its rope part [B,S,H,rd]) at
+    positions ``q_base..`` over keys [B,Sk,H,dh] (+ the shared rope key
+    [B,Sk,rd]) and values [B,Sk,H,dh] under the causal mask, in q-row
+    blocks of ``SDPA_CHUNK`` when ``chunked``; returns [B,S,H,dh] in q's
+    type."""
+    dtype = q_nope.dtype
+    s, dh, rd = q_nope.shape[1], q_nope.shape[-1], q_rope.shape[-1]
+    k_nope, v, k_rope = k_nope.float(), v.float(), k_rope.float()
     sk = k_nope.shape[1]
     scale = 1.0 / math.sqrt(dh + rd)
 
     def block(qn: torch.Tensor, qr: torch.Tensor, offset: int):
         lg = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
-              + torch.einsum("bqhd,bkd->bhqk", qr.float(), k_rope_flat)
+              + torch.einsum("bqhd,bkd->bhqk", qr.float(), k_rope)
               ) * scale
         sq = qn.shape[1]
-        qpos = q_base + offset + torch.arange(sq, device=x.device)[:, None]
-        kpos = torch.arange(sk, device=x.device)[None, :]
+        qpos = q_base + offset + torch.arange(sq, device=qn.device)[:, None]
+        kpos = torch.arange(sk, device=qn.device)[None, :]
         lg = torch.where(qpos >= kpos, lg, -1e30)
         probs = torch.softmax(lg, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(x.dtype).float(), v)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(), v)
 
-    if s > SDPA_CHUNK and s % SDPA_CHUNK == 0 and cache is None:
+    if chunked:
         out = torch.cat([block(q_nope[:, i:i + SDPA_CHUNK],
                                q_rope[:, i:i + SDPA_CHUNK], i)
                          for i in range(0, s, SDPA_CHUNK)], dim=1)
     else:
         out = block(q_nope, q_rope, 0)
-    out = out.to(x.dtype).reshape(b, s, h * dh)
-    return out @ p["wo"], new_cache
+    return out.to(dtype)
 
 
 # -- MLP ----------------------------------------------------------------------
@@ -368,6 +527,7 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int,
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    h = shard_model_last(h)
     return h @ p["w2"]
 
 
@@ -427,6 +587,15 @@ class Routing:
     capacity: int
 
 
+def _gate(p: Params, cfg: ArchConfig, xf: torch.Tensor):
+    """Router gates in fp32 ``[T, E]``, the top-k experts ``[T, k]`` and
+    the softmax over their gates in the working type."""
+    gates = (xf @ p["router"]).float()                     # [T, E]
+    top_vals, top_idx = top_k(gates, cfg.experts_per_tok)  # [T, k]
+    probs = torch.softmax(top_vals, dim=-1).to(xf.dtype)
+    return gates, top_idx, probs
+
+
 def moe_route(p: Params, cfg: ArchConfig, xf: torch.Tensor,
               capacity_factor: float = 1.25) -> Routing:
     """The reference's routing on ``xf [T, D]``: gates, top-k, a softmax
@@ -435,9 +604,7 @@ def moe_route(p: Params, cfg: ArchConfig, xf: torch.Tensor,
     capacity is dropped and parked in the last slot."""
     t = xf.shape[0]
     k, e = cfg.experts_per_tok, cfg.n_experts
-    gates = (xf @ p["router"]).float()                     # [T, E]
-    top_vals, top_idx = top_k(gates, k)                    # [T, k]
-    probs = torch.softmax(top_vals, dim=-1).to(xf.dtype)
+    gates, top_idx, probs = _gate(p, cfg, xf)
     cap = moe_capacity(t, k, e, capacity_factor)
     flat_e = top_idx.reshape(-1)                           # [T*k]
     onehot = F.one_hot(flat_e, e)
@@ -448,29 +615,122 @@ def moe_route(p: Params, cfg: ArchConfig, xf: torch.Tensor,
     return Routing(gates, flat_e, probs, slot, keep, cap)
 
 
+def _moe_dispatch_local(cfg: ArchConfig, capacity_factor: float):
+    """The per-device MoE dispatch body of the expert-parallel path (the
+    JAX package's ``shard_map`` body).
+
+    ``body(xf, top_idx, probs, w1, w3, w2, model_index)``: this rank's
+    tokens ``xf [T_loc, D]`` with their top-k experts and weights, and its
+    ``E / model_size`` experts, the ``model_index``-th block of them.  It
+    routes the local tokens to the local experts with the capacity
+    ``max(8, int(capacity_factor * T_loc * k / E))`` (no drop-free branch),
+    runs the experts' products on local buffers and returns this rank's
+    share of the output ``[T_loc, D]``; the caller sums the shares over the
+    model axis (the reference's ``psum``)."""
+    e_total = cfg.n_experts
+    k = cfg.experts_per_tok
+
+    def body(xf, top_idx, probs, w1, w3, w2, model_index: int):
+        e_loc = w1.shape[0]
+        t_loc, d = xf.shape
+        e_start = model_index * e_loc
+        cap = max(8, int(capacity_factor * t_loc * k / e_total))
+        flat_e = top_idx.reshape(-1).long() - e_start
+        mine = (flat_e >= 0) & (flat_e < e_loc)
+        fe = torch.where(mine, flat_e, 0)
+        onehot = F.one_hot(fe, e_loc) * mine[:, None]
+        incl = torch.cumsum(onehot, dim=0)
+        slot = torch.gather(incl - onehot, 1, fe[:, None])[:, 0]
+        keep = mine & (slot < cap)
+        slot = torch.where(keep, slot, cap - 1)
+        x_rep = xf[:, None, :].expand(t_loc, k, d).reshape(t_loc * k, d)
+        buf = xf.new_zeros((e_loc, cap, d))
+        buf.index_put_((fe, slot), torch.where(keep[:, None], x_rep, 0),
+                       accumulate=True)
+        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+        out_e = torch.bmm(h, w2)
+        y = out_e[fe, slot] * keep[:, None].to(out_e.dtype)
+        return (y.reshape(t_loc, k, d)
+                * probs.reshape(t_loc, k)[..., None].to(y.dtype)).sum(1)
+
+    return body
+
+
+def _moe_routed_sharded(p: Params, cfg: ArchConfig, xf: torch.Tensor,
+                        top_idx: torch.Tensor, probs: torch.Tensor,
+                        capacity_factor: float) -> Optional[torch.Tensor]:
+    """The expert-parallel path on DTensors; None where it does not apply
+    (a plain tensor, no data or model axis, experts or tokens that do not
+    divide over it), and the caller takes the single-device path.
+
+    Tokens go over the data axes and are replicated along the model axis,
+    the experts over the model axis (gathered along the data axes); each
+    rank runs ``_moe_dispatch_local`` on its local tensors, and its share
+    becomes a partial sum over the model axis, which one all-reduce (a
+    functional collective) turns into the output."""
+    model_ax, da = model_axis(), data_axes()
+    if not model_ax or not da or not isinstance(xf, DTensor):
+        return None
+    mesh = xf.device_mesh
+    sizes = mesh_shape(mesh)
+    if model_ax not in sizes:
+        return None
+    dsize = math.prod(sizes[a] for a in da)
+    if cfg.n_experts % sizes[model_ax] or xf.shape[0] % dsize:
+        return None
+    tok = placements((da, None), mesh)
+    exp = placements((model_ax, None, None), mesh)
+
+    def local(t: torch.Tensor, where) -> torch.Tensor:
+        return t.redistribute(mesh, where).to_local()
+
+    w = p["experts"]
+    body = _moe_dispatch_local(cfg, capacity_factor)
+    y = body(local(xf, tok), local(top_idx, tok), local(probs, tok),
+             local(w["w1"], exp), local(w["w3"], exp), local(w["w2"], exp),
+             mesh.get_local_rank(model_ax))
+    share = tuple(Partial() if name == model_ax else pl
+                  for name, pl in zip(mesh.mesh_dim_names, tok))
+    return DTensor.from_local(y, mesh, share, run_check=False).redistribute(
+        mesh, tok)
+
+
 def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
               capacity_factor: float = 1.25) -> torch.Tensor:
-    """Top-k token-choice MoE with capacity-bounded dispatch: the JAX
-    package's single-device path (``moe_route``, a scatter-add into
-    ``[E, cap, D]`` buffers, the experts' batched products, the gather and
-    the prob-weighted sum, then the shared experts)."""
+    """Top-k token-choice MoE with capacity-bounded dispatch.  On DTensors
+    with a model axis bound, the expert-parallel path
+    (``_moe_routed_sharded``); otherwise the JAX package's single-device
+    path (``moe_route``, a scatter-add into ``[E, cap, D]`` buffers, the
+    experts' batched products, the gather and the prob-weighted sum).  The
+    shared experts follow either."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_tok, cfg.n_experts
-    xf = x.reshape(t, d)
-    r = moe_route(p, cfg, xf, capacity_factor)
+    # the tokens over the data axes: so laid out, the flat rows' gradient
+    # views back onto [B, S] (rows sharded over every mesh axis would not)
+    xf = shard_tokens(x.reshape(t, d))
 
-    x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e, r.capacity, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((r.flat_e, r.slot),
-                   torch.where(r.keep[:, None], x_rep, 0), accumulate=True)
+    y = None
+    if model_axis() and isinstance(xf, DTensor):
+        _, top_idx, probs = _gate(p, cfg, xf)
+        y = _moe_routed_sharded(p, cfg, xf, top_idx, probs, capacity_factor)
+    if y is None:
+        r = moe_route(p, cfg, xf, capacity_factor)
+        x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+        buf = xf.new_zeros((e, r.capacity, d))
+        buf.index_put_((r.flat_e, r.slot),
+                       torch.where(r.keep[:, None], x_rep, 0),
+                       accumulate=True)
+        if model_axis():
+            buf = _maybe_shard(buf, (model_axis(), data_axes() or None,
+                                     None))
 
-    w = p["experts"]
-    h = F.silu(torch.bmm(buf, w["w1"])) * torch.bmm(buf, w["w3"])
-    out_e = torch.bmm(h, w["w2"])
+        w = p["experts"]
+        h = F.silu(torch.bmm(buf, w["w1"])) * torch.bmm(buf, w["w3"])
+        out_e = torch.bmm(h, w["w2"])
 
-    y = out_e[r.flat_e, r.slot] * r.keep[:, None].to(out_e.dtype)
-    y = (y.reshape(t, k, d) * r.probs[..., None]).sum(dim=1)
+        y = out_e[r.flat_e, r.slot] * r.keep[:, None].to(out_e.dtype)
+        y = (y.reshape(t, k, d) * r.probs[..., None]).sum(dim=1)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], xf)
     return y.reshape(b, s, d)

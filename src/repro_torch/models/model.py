@@ -22,6 +22,12 @@ kernel for serving, the JAX package's chunked einsum path for
 :func:`lm_loss`, which autograd differentiates (the kernel, like the JAX
 package's, has no backward).  MLA keeps its own einsum product either way.
 
+On DTensors (the dry-run of :mod:`repro_torch.launch.dryrun`) the
+embedding lookup, the logits and the loss follow the sharding hints of
+:mod:`repro_torch.models.layers`: the lookup and the vocab padding run on
+each rank's shards, the logits shard the vocab over the model axis, and
+the gold logit is a masked sum over it.
+
 The caches are a list with one dict per entry of ``cfg.pattern``: ``{"k",
 "v"}`` (GQA, each ``sattn`` its own), ``{"latent", "k_rope"}`` (MLA), or
 the recurrent state of a Mamba2/xLSTM block.  Prefill and decode write
@@ -34,6 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
@@ -306,15 +314,43 @@ def encode(cfg: ArchConfig, params: Params, feats: torch.Tensor,
 
 def embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor
           ) -> torch.Tensor:
-    return params["emb"][tokens]
+    """The rows of ``tokens``.  On DTensors, a lookup on each rank's
+    tokens (over the data axes) in its share of the features (over the
+    model axis), the layout ``L.shard_tokens`` asks of the result."""
+    emb = params["emb"]
+    rows = (L.data_axes() or None,) + (None,) * (tokens.ndim - 1)
+    return L.on_shards(lambda e, t: e[t], (emb, tokens),
+                       ((None, L.model_axis()), rows),
+                       rows + (L.model_axis(),),
+                       tuple(tokens.shape) + (emb.shape[1],))
 
 
-def logits_of(cfg: ArchConfig, params: Params, h: torch.Tensor
-              ) -> torch.Tensor:
-    """Final norm and projection onto the vocabulary."""
+def logits_of(cfg: ArchConfig, params: Params, h: torch.Tensor,
+              pad_vocab: bool = False) -> torch.Tensor:
+    """Final norm and projection onto the vocabulary.  ``pad_vocab``: the
+    output dim padded to a multiple of 512 (minicpm's 122753 cannot shard
+    over a 16-way model axis), the padded columns -1e30, so that a
+    logsumexp over them is unchanged."""
     h = L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
     unemb = params["emb"].T if cfg.tie_embeddings else params["unemb"]
-    return h @ unemb
+    pad = (-cfg.vocab) % 512 if pad_vocab else 0
+    if pad:
+        # on each rank's rows of the feature dim (the vocab dim whole there)
+        rows = (L.data_axes() + (L.model_axis(),), None)
+        unemb = L.on_shards(lambda u: F.pad(u, (0, pad)), (unemb,), (rows,),
+                            rows)
+    if L.model_axis():
+        # the vocab over the model axis, the tokens over the data axes: the
+        # weight is gathered along its feature dim (FSDP) rather than the
+        # tokens along theirs
+        h = L._maybe_shard(h, (L.data_axes() or None,)
+                           + (None,) * (h.ndim - 1))
+        unemb = L._maybe_shard(unemb, (None, L.model_axis()))
+    logits = h @ unemb
+    if pad:
+        padded = torch.arange(cfg.vocab + pad, device=h.device) >= cfg.vocab
+        logits = torch.where(padded, -1e30, logits)
+    return logits
 
 
 # -- task-level functions -----------------------------------------------------
@@ -327,6 +363,7 @@ def _inputs(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = embed(cfg, params, tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    x = L.shard_tokens(x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     enc_out = None
@@ -349,13 +386,24 @@ def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                                     enc_feats, flash=False)
     h, _ = forward(cfg, params, x, positions, pos3=pos3, enc_out=enc_out,
                    flash=False)
-    logits = logits_of(cfg, params, h)
+    logits = logits_of(cfg, params, h, pad_vocab=bool(L.model_axis()))
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
-    logits = logits.float()
+    # logits shard vocab over the model axis: the [B,S,V] fp32 tensor is
+    # by far the largest activation
+    logits = L.shard_tokens(logits.float())
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    if isinstance(logits, DTensor):
+        # the gold logit as a masked sum over the vocab, which stays
+        # sharded over the model axis (the gather's backward would scatter
+        # into replicated [B,S,V] zeros)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = L.shard_tokens(torch.where(vocab == labels.long()[..., None],
+                                          logits, 0.0).sum(-1))
+        logz = L.shard_tokens(logz)
+    else:
+        gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                    dim=-1)[..., 0]
     return torch.mean(logz - gold)
 
 

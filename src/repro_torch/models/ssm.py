@@ -14,15 +14,48 @@ a handful of small launches on the card.  ``softplus`` is
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (Params, dense_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (Params, _maybe_shard, data_axes,
+                                       dense_init, merge_heads, rmsnorm,
+                                       rmsnorm_init, shard_tokens,
+                                       split_heads)
+
+
+# Time steps a scan computes; None: all of them.  The dry-run counts a
+# shortened scan and scales it (every step has the same shapes, so its
+# cost is linear in the steps; repro_torch.launch.costing): the steps past
+# the limit repeat the last output, so that every later op sees the
+# sequence's shapes.
+_SCAN_STEPS: Dict[str, Optional[int]] = {"limit": None}
+
+
+@contextlib.contextmanager
+def scan_steps(limit: Optional[int]) -> Iterator[None]:
+    """Each time scan computes at most ``limit`` steps in the body."""
+    saved = _SCAN_STEPS["limit"]
+    _SCAN_STEPS["limit"] = limit
+    try:
+        yield
+    finally:
+        _SCAN_STEPS["limit"] = saved
+
+
+def _steps(s: int) -> int:
+    limit = _SCAN_STEPS["limit"]
+    return s if limit is None else min(s, limit)
+
+
+def _stack_steps(ys: list, s: int) -> torch.Tensor:
+    """The per-step outputs stacked on dim 1, the steps a shortened scan
+    skipped repeating its last output."""
+    return torch.stack(ys + [ys[-1]] * (s - len(ys)), dim=1)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -61,8 +94,7 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
     in the reference."""
     k = w.shape[0]
     if state is None:
-        state = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
-                            device=u.device)
+        state = u.new_zeros((u.shape[0], k - 1, u.shape[2]))
     padded = torch.cat([state, u], dim=1)
     out = sum(padded[:, i:i + u.shape[1], :] * w[i] for i in range(k))
     new_state = padded[:, -(k - 1):, :] if k > 1 else state
@@ -79,25 +111,28 @@ def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     uz = xn @ p["w_in"]
     u, z = uz[..., :di], uz[..., di:]
-    bc = xn @ p["w_bc"]
+    # on DTensors, each step's inputs are laid out once before the loop
+    # (B and C whole on each rank, Δ and u over the channels, as the
+    # state): a step's slice of a partial sum would be reduced every step
+    bc = _maybe_shard(xn @ p["w_bc"], (data_axes() or None, None, None))
     bmat, cmat = bc[..., :n].float(), bc[..., n:].float()     # [B,S,N]
-    dt = softplus((xn @ p["w_dt"]).float())                   # [B,S,di]
+    dt = shard_tokens(softplus((xn @ p["w_dt"]).float()))     # [B,S,di]
     u, conv_state = _causal_conv(u, p["conv_w"],
                                  state["conv"] if state else None)
     u = F.silu(u)
     a = -torch.exp(p["a_log"])                                # [di]
 
     h = (state["h"] if state else
-         torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
-    u32 = u.float()
+         x.new_zeros((b, di, n), dtype=torch.float32))
+    u32 = shard_tokens(u.float())
     ys = []
-    for t in range(s):
+    for t in range(_steps(s)):
         dt_t = dt[:, t]
         decay = torch.exp(dt_t * a)                           # [B,di]
         h = h * decay[..., None] + (dt_t * u32[:, t])[..., None] * \
             bmat[:, t, None, :]
         ys.append((h * cmat[:, t, None, :]).sum(-1))          # [B,di]
-    y = torch.stack(ys, dim=1).to(x.dtype)                    # [B,S,di]
+    y = _stack_steps(ys, s).to(x.dtype)                       # [B,S,di]
     y = y + u * p["d_skip"]
     y = y * F.silu(z)
     out = y @ p["w_out"]
@@ -141,20 +176,20 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     h = cfg.n_heads
     dh = d // h
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, h, dh).float()
-    k = (xn @ p["wk"]).reshape(b, s, h, dh).float() / math.sqrt(dh)
-    v = (xn @ p["wv"]).reshape(b, s, h, dh).float()
+    q = split_heads(xn @ p["wq"], h, dh).float()
+    k = split_heads(xn @ p["wk"], h, dh).float() / math.sqrt(dh)
+    v = split_heads(xn @ p["wv"], h, dh).float()
     gi, gf = (xn @ p["w_if"]).float().chunk(2, dim=-1)         # [B,S,H]
 
     if state is None:
-        c = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-        m = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+        c = x.new_zeros((b, h, dh, dh), dtype=torch.float32)
+        n = x.new_zeros((b, h, dh), dtype=torch.float32)
+        m = x.new_zeros((b, h), dtype=torch.float32)
     else:
         c, n, m = state["c"], state["n"], state["m"]
 
     ys = []
-    for t in range(s):
+    for t in range(_steps(s)):
         q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]
         i_t, f_t = gi[:, t], gf[:, t]
         logf = -softplus(-f_t)                               # log sigmoid(f)
@@ -167,9 +202,9 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
         denom = torch.clamp_min(torch.abs((n * q_t).sum(-1)), 1.0)  # [B,H]
         ys.append((c * q_t[..., None, :]).sum(-1) / denom[..., None])
         m = m_new
-    y = torch.stack(ys, dim=1)                               # [B,S,H,dh]
+    y = _stack_steps(ys, s)                                  # [B,S,H,dh]
     y = rmsnorm(y.to(x.dtype), p["out_norm"], cfg.norm_eps)
-    out = y.reshape(b, s, d) @ p["wo"]
+    out = merge_heads(y) @ p["wo"]
     return x + out, {"c": c, "n": n, "m": m}
 
 
@@ -208,14 +243,14 @@ def slstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     wx = (xn @ p["w_gates"]).float()                         # [B,S,4D]
 
     if state is None:
-        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        z = x.new_zeros((b, d), dtype=torch.float32)
         c, n, hid, m = z, z, z, z
     else:
         c, n, hid, m = state["c"], state["n"], state["hid"], state["m"]
 
     r_gates = p["r_gates"].float()
     ys = []
-    for t in range(s):
+    for t in range(_steps(s)):
         g = wx[:, t] + hid @ r_gates
         gi, gf, gz, go = g.chunk(4, dim=-1)
         logf = -softplus(-gf)
@@ -227,7 +262,7 @@ def slstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
         hid = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
         m = m_new
         ys.append(hid)
-    y = torch.stack(ys, dim=1).to(x.dtype)
+    y = _stack_steps(ys, s).to(x.dtype)
     out = y @ p["wo"]
     return x + out, {"c": c, "n": n, "hid": hid, "m": m}
 

@@ -585,3 +585,42 @@ def test_sass_report_runs_the_vector_check_on_each_function(tmp_path,
     with pytest.raises(AssertionError, match="spills"):
         chip_smoke.sass_report("lib.so", nvcc, {name: dict(
             clean[name], spill_stores=4)})
+
+
+# -- phase 11, planning --------------------------------------------------------
+
+def _jax_argument_bytes(arch, shape, multi):
+    """The JAX package's per-device argument bytes of a cell: its
+    input_specs on the production mesh (an AbstractMesh with Auto axes,
+    R9), each leaf's shard under its PartitionSpec."""
+    from jax.sharding import AbstractMesh, AxisType
+    from repro.launch.specs import input_specs
+    dims, names = (((2, 16, 16), ("pod", "data", "model")) if multi
+                   else ((16, 16), ("data", "model")))
+    mesh = AbstractMesh(dims, names, axis_types=(AxisType.Auto,) * len(dims))
+    _, args, _ = input_specs(arch, shape, mesh)
+    return sum(int(np.prod(leaf.sharding.shard_shape(leaf.shape)))
+               * np.dtype(leaf.dtype).itemsize
+               for leaf in jax.tree_util.tree_leaves(args))
+
+
+def test_planning_reference_is_the_jax_packages():
+    got = {}
+    for arch, shape, multi in chip_smoke.PLANNING_CELLS:
+        mesh = "2x16x16" if multi else "16x16"
+        got[(arch, shape, mesh)] = _jax_argument_bytes(arch, shape, multi)
+    assert got == chip_smoke.PLANNING_REFERENCE
+
+
+def test_planning_moe_bounds_both_paths_alike():
+    """At 4 x 1024 tokens both MoE paths of phase 11 give each of
+    deepseek-v2-236b's experts int(1.25 * 24576 / 160) = 192 slots: the
+    single-device path past its drop-free range (t * k > 1024), the
+    expert-parallel body on its one rank's tokens."""
+    from repro_torch.models import layers
+    cfg = chip_smoke.configs.get(chip_smoke.PLANNING_MOE["arch"])
+    t = chip_smoke.PLANNING_MOE["batch"] * chip_smoke.PLANNING_MOE["seq"]
+    k, e = cfg.experts_per_tok, cfg.n_experts
+    assert t * k > 1024
+    assert layers.moe_capacity(t, k, e) == max(8, int(1.25 * t * k / e)) \
+        == 192

@@ -5,8 +5,11 @@ expert), reduced, in fp32 on the JAX init.
 Beyond the whole-model checks of ``_family_checks`` (logits 1e-4, loss
 and every gradient 1e-5, a train step within TRAIN_TOL, the serving
 loop's tokens equal): ``top_k``'s order of ties, ``moe_apply`` with and
-without capacity drops and on tied gates (drop for drop), and
-``mla_attention`` with and without its latent cache.
+without capacity drops and on tied gates (drop for drop), the
+expert-parallel path (its per-device body against the JAX package's
+``shard_map`` body, and ``moe_apply`` on a one-rank gloo mesh against the
+single-device path), and ``mla_attention`` with and without its latent
+cache.
 """
 import numpy as np
 import pytest
@@ -132,6 +135,110 @@ def test_moe_init_stacks_the_experts():
     assert p["shared"]["w1"].shape == (cfg.d_model,
                                        ff * cfg.n_shared_experts)
     assert not torch.equal(p["experts"]["w1"][0], p["experts"]["w1"][1])
+
+
+# -- the expert-parallel path -------------------------------------------------
+
+@pytest.mark.parametrize("data", [1, 2])
+@pytest.mark.parametrize("model", [1, 2, 4])
+def test_expert_parallel_body_equals_the_jax_shard_map_body(model, data):
+    """The per-device body on each (data, model) shard of reduced
+    deepseek-v2-236b's MoE (4 experts, top-2, d 320), its shares summed
+    over the model shards, against the JAX package's
+    ``_moe_dispatch_local`` body under ``jax.vmap(..., axis_name="model")``
+    over the stacked expert shards (whose ``psum`` sums them), data shard
+    by data shard; within 1e-6 of the output's largest magnitude in fp32
+    (torch's bmm and XLA's dot sum in other orders).  64 tokens a data
+    shard: the
+    local capacity (max(8, int(1.25 * 64 * 2 / 4)) = 40 slots) drops
+    pairs of the skewed routing."""
+    pr, p_j, p_t = _moe_layer("deepseek-v2-236b")
+    cfg_j, cfg_t = pr.cfg_j, pr.cfg_t
+    e, k = cfg_t.n_experts, cfg_t.experts_per_tok
+    rng = np.random.default_rng(10 * model + data)
+    t_loc = 64
+    xf = rng.normal(size=(data * t_loc, cfg_t.d_model)).astype(np.float32)
+    gates = xf @ np.asarray(p_j["router"])
+    gates[:, 0] += 0.5                    # lean toward expert 0
+    top_vals, top_idx = jax.lax.top_k(jnp.asarray(gates), k)
+    probs = np.asarray(jax.nn.softmax(top_vals, axis=-1))
+    top_idx = np.array(top_idx)
+    w = {n: np.asarray(p_j["experts"][n]) for n in ("w1", "w3", "w2")}
+    ref_body = jax.jit(jax.vmap(RL._moe_dispatch_local(cfg_j, 1.25,
+                                                       "model"),
+                                in_axes=(None, None, None, 0, 0, 0),
+                                axis_name="model"))
+    body = L._moe_dispatch_local(cfg_t, 1.25)
+    e_loc = e // model
+    dropped = 0
+    for d in range(data):
+        rows = slice(d * t_loc, (d + 1) * t_loc)
+        shards = {n: a.reshape((model, e_loc) + a.shape[1:])
+                  for n, a in w.items()}
+        want = np.asarray(ref_body(
+            jnp.asarray(xf[rows]), jnp.asarray(top_idx[rows]),
+            jnp.asarray(probs[rows]), jnp.asarray(shards["w1"]),
+            jnp.asarray(shards["w3"]), jnp.asarray(shards["w2"])))
+        got = sum(body(torch.from_numpy(xf[rows]),
+                       torch.from_numpy(top_idx[rows]),
+                       torch.from_numpy(probs[rows]),
+                       *(torch.from_numpy(shards[n][m])
+                         for n in ("w1", "w3", "w2")), m)
+                  for m in range(model))
+        scale = float(np.abs(want).max())
+        for m in range(model):              # every model shard's psum
+            np.testing.assert_allclose(got.numpy(), want[m], rtol=0,
+                                       atol=1e-6 * scale)
+        counts = np.bincount(top_idx[rows].reshape(-1), minlength=e)
+        dropped += int(np.maximum(counts - 40, 0).sum())
+    assert dropped > 0                       # the capacity bound applied
+
+
+def test_moe_apply_on_a_one_rank_gloo_mesh_takes_the_expert_parallel_path():
+    """``chip_smoke.moe_two_paths`` on the CPU: reduced deepseek-v2-236b
+    at 2 x 300 tokens (t * k = 1200 > 1024, so both paths bound each
+    expert at 375 slots), the single-device path and ``moe_apply`` on
+    DTensors of a 1 x 1 mesh over a one-rank gloo group, bit for bit; the
+    second goes through ``_moe_routed_sharded``."""
+    import chip_smoke
+    import torch.distributed as dist
+    cfg = port_config("deepseek-v2-236b")
+    p = chip_smoke.moe_layer(cfg, "cpu", torch.float32)
+    x = torch.randn((2, 300, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    assert L.moe_capacity(600, cfg.experts_per_tok, cfg.n_experts) == 375
+    calls = []
+    sharded = L._moe_routed_sharded
+
+    def spy(*args):
+        out = sharded(*args)
+        calls.append(out is not None)
+        return out
+
+    single, expert_parallel = chip_smoke.moe_two_paths(cfg, p, x, "gloo",
+                                                       "cpu")
+    try:
+        L._moe_routed_sharded = spy
+        ep = expert_parallel()
+    finally:
+        L._moe_routed_sharded = sharded
+        dist.destroy_process_group()
+    assert calls == [True]
+    assert torch.equal(single, ep)
+    assert not L.model_axis() and not L.data_axes()
+
+
+def test_hints_do_nothing_to_plain_tensors():
+    x = torch.randn(4, 8, 16)
+    L.set_mesh_axes(("data",), "model")
+    try:
+        assert L.shard_tokens(x) is x
+        assert L.shard_model_last(x) is x
+        assert L._maybe_shard(x, (("data",), None, "model")) is x
+        assert L._moe_routed_sharded({}, None, x[0], None, None,
+                                     1.25) is None
+    finally:
+        L.set_mesh_axes((), None)
 
 
 # -- MLA ----------------------------------------------------------------------
