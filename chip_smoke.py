@@ -96,10 +96,12 @@ last line:
    card's name and power limit, with one more step under
    ``torch.profiler``: the device's busy time and the ATen ops that take
    it;
-10. families — the LM families phases 6 and 9 do not cover (qwen2-vl-2b,
-   zamba2-1.2b, xlstm-125m, seamless-m4t-medium, dbrx-132b,
+10. families — the LM configs phase 6 does not serve: the families
+   (qwen2-vl-2b, zamba2-1.2b, xlstm-125m, seamless-m4t-medium, dbrx-132b,
    deepseek-v2-236b: M-RoPE, Mamba2 with a shared attention block,
-   xLSTM, an encoder-decoder, MoE, MLA).  Pinned: each reduced in fp32
+   xLSTM, an encoder-decoder, MoE, MLA) and the four other dense configs
+   (qwen3-4b with qk-norm, minicpm-2b, stablelm-1.6b, llama2-7b, each at
+   whole depth).  Pinned: each reduced in fp32
    on weights made here from a seed in the JAX package's tree layout
    (zamba2 over a whole period, so that its shared block runs) through
    the serving loop, and qwen2-vl and seamless also through prefill with
@@ -132,6 +134,20 @@ last line:
    expert-parallel path on a 1 x 1 mesh over a one-rank NCCL group: the
    two outputs bit-equal, their CUDA-event times and the peak memory
    printed beside the card's name and power limit.
+12. families-train — the training path on the ten configs of phase 10.
+   Pinned: each reduced in fp32 on phase 10's seeded weights with zero
+   AdamW state, three steps on batches drawn here with their stubs (each
+   step's loss, learning rate, gradient norm and update L1 norm within a
+   stated tolerance of the JAX package's, ``FAMILIES_TRAIN_REFERENCE``;
+   on a mismatch the smallest top-k gate margin is printed).  Then each
+   at its published widths in bf16 with remat, cut to what one card
+   holds (``TRAIN_CUTS``: depth, and the routed experts of dbrx and
+   deepseek), batch 4 x 1024 tokens with bf16 stubs: every gradient
+   finite and non-zero (experts no token reached counted), the step
+   time, tokens/s, peak memory and the model-flops share on the config's
+   active parameters printed beside the card's name and power limit,
+   with a profiled step, or for the Mamba2/xLSTM configs one timed step
+   and their time loops' share of it; no flash-attention launch.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -177,9 +193,9 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch.elastic import run_elastic  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
                                       serve_requests)
+from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.launch.steps import (build_prefill_step,  # noqa: E402
-                                      build_serve_step, build_train_step,
-                                      loss_and_grads)
+                                      build_serve_step, build_train_step)
 from repro_torch.launch.train import (device_batch,  # noqa: E402
                                       make_state, state_from_numpy, train)
 from repro_torch.optim import AdamWState  # noqa: E402
@@ -238,11 +254,15 @@ ATTN_CASES = [(2, 64, 64, 32), (1, 128, 128, 64), (4, 32, 32, 16),
 # dh 128), of dbrx-132b (4 x 48 heads), zamba2-1.2b's shared block (4 x
 # 32 heads, dh 64), seamless-m4t-medium's encoder over 256 frames, its
 # decoder's self-attention, its cross-attention in prefill and in a decode
-# step (one query token); each also in ATTN_CASES (both masks, both types)
+# step (one query token), and of the dense configs qwen3-4b and llama2-7b
+# (4 x 32 heads, dh 128) and minicpm-2b (4 x 36 heads, dh 64;
+# stablelm-1.6b's is zamba2's); each also in ATTN_CASES (both masks, both
+# types)
 FAMILY_ATTN = [(48, 1088, 1088, 128, True), (192, 1024, 1024, 128, True),
                (128, 1024, 1024, 64, True), (64, 256, 256, 64, False),
                (64, 1024, 1024, 64, True), (64, 1024, 256, 64, False),
-               (64, 1, 256, 64, False)]
+               (64, 1, 256, 64, False), (128, 1024, 1024, 128, True),
+               (144, 1024, 1024, 64, True)]
 ATTN_CASES += [shape[:4] for shape in FAMILY_ATTN]
 # tolerance (atol = rtol) against the plain version: fp32 as
 # tests/test_kernels.py:79 holds the Pallas kernel; bf16: the tensor-core
@@ -283,9 +303,11 @@ SERVE_FULL = {"n_requests": 8, "batch": 4, "prompt_len": 1024,
 # the pinned run: reduced config, fp32, weights from jax_layout_params
 SERVE_PINNED = {"n_requests": 4, "batch": 2, "prompt_len": 8, "max_new": 4}
 
-# Phase 10, the LM families (the configs phase 6 and 9 do not cover)
+# Phase 10, the LM configs phase 6 does not serve (the LM families, then
+# the four other dense configs); phase 12 trains the same ten
 FAMILY_ARCHS = ("qwen2-vl-2b", "zamba2-1.2b", "xlstm-125m",
-                "seamless-m4t-medium", "dbrx-132b", "deepseek-v2-236b")
+                "seamless-m4t-medium", "dbrx-132b", "deepseek-v2-236b",
+                "qwen3-4b", "minicpm-2b", "stablelm-1.6b", "llama2-7b")
 # zamba2's reduced config keeps the first four blocks of its pattern, all
 # mamba; the pinned one holds a whole period, so that the shared block runs
 ZAMBA2_PERIOD = ("mamba",) * 6 + ("sattn",)
@@ -306,7 +328,10 @@ FAMILIES_DEPTH = {"dbrx-132b": 4, "deepseek-v2-236b": 4}
 # [128, 1024, 64]; seamless 12 encoder [64, 256, 64] + 12 self [64, 1024,
 # 64] + 12 cross [64, 1024 -> 256, 64] in prefill, then the encoder again
 # for enc_out and 12 cross [64, 1 -> 256, 64] a step; dbrx 4 layers at
-# [192, 1024, 128]; none in xlstm (no attention) or deepseek (MLA)
+# [192, 1024, 128]; none in xlstm (no attention) or deepseek (MLA); the
+# dense configs one a layer, at whole depth: qwen3-4b 36 and llama2-7b 32
+# at [128, 1024, 128], minicpm-2b 40 at [144, 1024, 64], stablelm-1.6b 24
+# at [128, 1024, 64]
 # the full-width prefill's last-token logits through the kernel against
 # the einsum path (flash=False): max |diff| at most this share of the
 # largest |logit|.  Both paths round to bf16 at every layer, and the
@@ -316,7 +341,9 @@ FAMILIES_DEPTH = {"dbrx-132b": 4, "deepseek-v2-236b": 4}
 FAMILIES_LOGIT_RTOL = 0.1
 FAMILIES_K6 = {"qwen2-vl-2b": (28, 0), "zamba2-1.2b": (6, 0),
                "xlstm-125m": (0, 0), "seamless-m4t-medium": (36, 12 + 7 * 12),
-               "dbrx-132b": (4, 0), "deepseek-v2-236b": (0, 0)}
+               "dbrx-132b": (4, 0), "deepseek-v2-236b": (0, 0),
+               "qwen3-4b": (36, 0), "minicpm-2b": (40, 0),
+               "stablelm-1.6b": (24, 0), "llama2-7b": (32, 0)}
 
 # The JAX package's greedy tokens of phase 10's pinned runs
 # (family_config(arch), jax_layout_params(cfg, seed=0)): "serve" the
@@ -395,7 +422,47 @@ FAMILIES_REFERENCE = {
             "bd810e031c56e26ddb7fd0bc4b4e9a3e"
             "4f23d368cc28589cd61b762b57c9f8b6",
             "bb3ca153eec7b224297d01f153cf4a87"
-            "ec7181f60a9eb3907f2e6bca54be4957"]}}
+            "ec7181f60a9eb3907f2e6bca54be4957"]},
+    "qwen3-4b": {
+        "serve": [
+            "1237a197f14f510bcc3a39e4a2da4511"
+            "b62ce5977abba3f40954469016e4558f",
+            "65a8a65a29016b592a943a7c16a45134"
+            "905a7915aaa5fb73816de491f63beceb",
+            "31daf9ca67e29548ee821ff48ea7d9ff"
+            "4e92661f7089ac95df67954303197bce",
+            "7c3a1ab7cd621b3c708f1e8debe20c3f"
+            "f96f75d3425852802cd5de6006624032"]},
+    "minicpm-2b": {
+        "serve": [
+            "e666e35e46d3125be360a2c4e02498a7"
+            "5a84b46e272870447d64f2ee8e93ce8b",
+            "9201a7766aa23343411687dddf37aecf"
+            "0cb56c83a7d140ccebec2278cfac0618",
+            "11072a3d01deaba50b8ccd929bfe3d18"
+            "ca1c267ed879a8503bd48aacea2bf7c2",
+            "464e17d88f1066a0385e4f257bcd82e3"
+            "88a3e165cde59133709b840e95df45f1"]},
+    "stablelm-1.6b": {
+        "serve": [
+            "b084d26769fde4b05683a921e3e45f22"
+            "48004ffe513dd88614f939f245edbbab",
+            "045bddf6a22cf6bfa25ded8421dbfe46"
+            "ed0ec0d96f29bea6df9c28cc7b3f7a04",
+            "f0c5aa4782699c5c1087e5262bf6c9cd"
+            "b8887cde9c20c179353433bf8c2c434c",
+            "cfeb41bc8789860768e344c3f0353b18"
+            "b4de86ce8a3319c18fe3740c51374307"]},
+    "llama2-7b": {
+        "serve": [
+            "06a0029769b6e56aa426302208cb518e"
+            "5222a0740db936a0f2a402537d8864e1",
+            "83ab7fb8b2fe340a201ff2107e2f52d4"
+            "35d7fd94a7dd86eb90dec95fcbed620f",
+            "22e60eeca2727f9345ca1d43204181dd"
+            "ad1103d11553aa38bc4032789d1bb68f",
+            "9909f1d2b028c39171b910060a22d3af"
+            "3354d818d49cc3fefa35eabf11b0c7f7"]}}
 
 # The JAX package's results at "paper" scale: Table 3 row, conduit
 # makespan, and the digest of ``run_numeric``'s outputs (output_digest).
@@ -617,6 +684,119 @@ PLANNING_REFERENCE = {("tinyllama-1.1b", "train_4k", "16x16"): 44412932,
 # expert-parallel path (a 1 x 1 mesh over a one-rank NCCL group) both
 # bound each expert at int(1.25 * 24576 / 160) = 192 slots
 PLANNING_MOE = {"arch": "deepseek-v2-236b", "batch": 4, "seq": 1024}
+
+
+# Phase 12, the training of FAMILY_ARCHS.  (a) pinned: family_config(arch)
+# (reduced, fp32) on jax_layout_params(cfg, seed=0) with zero AdamW state,
+# three steps of build_train_step(cfg, total_steps=3, base_lr=1e-3), one
+# batch each (family_train_batch: step s's tokens and labels from
+# default_rng(s), its stubs family_extras(seed=s)).
+# FAMILIES_TRAIN_REFERENCE holds the JAX package's metrics of each step
+# and the L1 norm of its update; tests/test_torch_families_train.py
+# recomputes them with repro.launch.steps.build_train_step.
+FAMILIES_TRAIN_PINNED = {"batch": 2, "seq": 16, "steps": 3, "base_lr": 1e-3}
+FAMILIES_TRAIN_REFERENCE = {
+    "qwen2-vl-2b": [
+        {"loss": 6.265018463134766, "lr": 0.00010000000474974513,
+         "grad_norm": 3.006817102432251, "step_l1": 76.85603444306247},
+        {"loss": 6.217955589294434, "lr": 0.00020000000949949026,
+         "grad_norm": 3.2206692695617676, "step_l1": 99.678104423021},
+        {"loss": 6.289366722106934, "lr": 0.0003000000142492354,
+         "grad_norm": 3.408522844314575, "step_l1": 118.47877259019445}],
+    "zamba2-1.2b": [
+        {"loss": 6.273000717163086, "lr": 0.00010000000474974513,
+         "grad_norm": 51.48558044433594, "step_l1": 111.38472580341477},
+        {"loss": 6.268518447875977, "lr": 0.00020000000949949026,
+         "grad_norm": 57.7442741394043, "step_l1": 143.8580482631634},
+        {"loss": 6.256101608276367, "lr": 0.0003000000142492354,
+         "grad_norm": 76.07608032226562, "step_l1": 169.00440743582465}],
+    "xlstm-125m": [
+        {"loss": 6.244009017944336, "lr": 0.00010000000474974513,
+         "grad_norm": 5.223154067993164, "step_l1": 13.99552563388481},
+        {"loss": 6.246335029602051, "lr": 0.00020000000949949026,
+         "grad_norm": 6.949602127075195, "step_l1": 17.889424404512127},
+        {"loss": 6.190438747406006, "lr": 0.0003000000142492354,
+         "grad_norm": 5.200627326965332, "step_l1": 21.432248141725267}],
+    "seamless-m4t-medium": [
+        {"loss": 6.293612957000732, "lr": 0.00010000000474974513,
+         "grad_norm": 2.3914482593536377, "step_l1": 41.05358736128032},
+        {"loss": 6.230951309204102, "lr": 0.00020000000949949026,
+         "grad_norm": 2.1479835510253906, "step_l1": 52.94964505891663},
+        {"loss": 6.259799003601074, "lr": 0.0003000000142492354,
+         "grad_norm": 2.6606764793395996, "step_l1": 62.94796982247038}],
+    "dbrx-132b": [
+        {"loss": 6.910363674163818, "lr": 0.00010000000474974513,
+         "grad_norm": 18.80925178527832, "step_l1": 2406.3219375416875},
+        {"loss": 6.7100067138671875, "lr": 0.00020000000949949026,
+         "grad_norm": 17.430328369140625, "step_l1": 3378.8857735831602},
+        {"loss": 6.432124137878418, "lr": 0.0003000000142492354,
+         "grad_norm": 17.41463279724121, "step_l1": 4019.353541105907}],
+    "deepseek-v2-236b": [
+        {"loss": 6.590243339538574, "lr": 0.00010000000474974513,
+         "grad_norm": 25.71451759338379, "step_l1": 515.2182416607417},
+        {"loss": 6.733450889587402, "lr": 0.00020000000949949026,
+         "grad_norm": 26.799991607666016, "step_l1": 672.160406064045},
+        {"loss": 6.911919116973877, "lr": 0.0003000000142492354,
+         "grad_norm": 28.19438362121582, "step_l1": 797.7451785373478}],
+    "qwen3-4b": [
+        {"loss": 6.282318115234375, "lr": 0.00010000000474974513,
+         "grad_norm": 6.573990345001221, "step_l1": 145.48312715506268},
+        {"loss": 6.347029685974121, "lr": 0.00020000000949949026,
+         "grad_norm": 5.891206741333008, "step_l1": 187.5976829805993},
+        {"loss": 6.280525207519531, "lr": 0.0003000000142492354,
+         "grad_norm": 7.1351518630981445, "step_l1": 223.302401043034}],
+    "minicpm-2b": [
+        {"loss": 6.255946159362793, "lr": 0.00010000000474974513,
+         "grad_norm": 5.4777350425720215, "step_l1": 84.41253688346187},
+        {"loss": 6.306516647338867, "lr": 0.00020000000949949026,
+         "grad_norm": 5.525461196899414, "step_l1": 108.86583583409978},
+        {"loss": 6.287567138671875, "lr": 0.0003000000142492354,
+         "grad_norm": 6.3535685539245605, "step_l1": 129.2266816516839}],
+    "stablelm-1.6b": [
+        {"loss": 6.823299407958984, "lr": 0.00010000000474974513,
+         "grad_norm": 21.897079467773438, "step_l1": 74.19558296948487},
+        {"loss": 6.702983379364014, "lr": 0.00020000000949949026,
+         "grad_norm": 21.41283416748047, "step_l1": 97.03111546170769},
+        {"loss": 6.987805366516113, "lr": 0.0003000000142492354,
+         "grad_norm": 22.44892120361328, "step_l1": 116.3659036358593}],
+    "llama2-7b": [
+        {"loss": 6.638068675994873, "lr": 0.00010000000474974513,
+         "grad_norm": 20.73725700378418, "step_l1": 277.72063980167167},
+        {"loss": 6.487252712249756, "lr": 0.00020000000949949026,
+         "grad_norm": 19.789705276489258, "step_l1": 360.0011960130902},
+        {"loss": 6.834889888763428, "lr": 0.0003000000142492354,
+         "grad_norm": 21.393808364868164, "step_l1": 428.0204471769477}]}
+# Each step within TRAIN_TOL, but zamba2's gradient norm: its fp32
+# gradient is ill-conditioned (its forward's activations gather rounding
+# from block to block, 5e-7 to 5e-6 relative over its six Mamba2 blocks).
+# Against the port's float64 evaluation on the CPU, the JAX package's
+# fp32 global norm at step 0 is 8.9e-6 relative off and the port's
+# 3.7e-5; every other config's is at most 3e-7 off in both.  The bound
+# holds it to 1e-4, under 3x the port's own distance from the float64
+# value (tests/test_torch_families_train.py measures both).
+FAMILIES_TRAIN_TOL = {"zamba2-1.2b": dict(TRAIN_TOL, grad_norm_rtol=1e-4)}
+# (b) published widths, bf16, remat, batch 4 x 1024 tokens of
+# SyntheticLM(cfg.vocab, 1024, 4, seed=0) (phase 9's shape) with the bf16
+# stubs of phase 10's shapes, the step time the median of steps 2-3
+FAMILIES_TRAIN_FULL = {"steps": 3, "batch": 4, "seq": 1024, "base_lr": 1e-3}
+# the block kinds whose time loops (models/ssm.py) launch ~10^5-10^6
+# kernels a step: their configs take one timed step and no profiled one,
+# and the loops' share of the step is read from host wall time
+SCAN_KINDS = ("mamba", "mlstm", "slstm")
+# The cuts that let one step fit in 80 GB.  A step holds a bf16 weight and
+# gradient and two fp32 moments (12 B a parameter), then the functional
+# AdamW makes new weights and moments beside the old (10 B more), with
+# fp32 temporaries of the largest leaf (~20 B an element): 3-68 GB at the
+# cuts below, beside the fp32 logits (4096 tokens x up to 256206).  Depth
+# is cut for the dense configs; dbrx-132b and deepseek-v2-236b hold 99 and
+# 110 GB at one layer with all their experts, so their routed experts are
+# cut as well (the expert's width, top-k, the shared experts and the
+# capacity rule kept).  The others train whole.
+TRAIN_CUTS = {"minicpm-2b": {"n_layers": 32},
+              "qwen3-4b": {"n_layers": 16},
+              "llama2-7b": {"n_layers": 12},
+              "dbrx-132b": {"n_layers": 1, "n_experts": 6},
+              "deepseek-v2-236b": {"n_layers": 2, "n_experts": 16}}
 
 
 def phase(name: str) -> None:
@@ -1540,8 +1720,8 @@ def train_pinned(device, microbatches: int) -> list:
     return rows
 
 
-def train_metrics_within(got: dict, want: dict) -> bool:
-    tol = TRAIN_TOL
+def train_metrics_within(got: dict, want: dict, tol: dict = TRAIN_TOL
+                         ) -> bool:
     return (abs(got["loss"] - want["loss"]) <= tol["loss"]
             and abs(got["lr"] - want["lr"]) <= tol["lr_rtol"] * want["lr"]
             and abs(got["grad_norm"] - want["grad_norm"])
@@ -1604,6 +1784,29 @@ def gradient_report(grads) -> dict:
             for (path, _), f, n in zip(flat, finite, norms)}
 
 
+def unreached_experts(grads) -> dict:
+    """Each stacked expert leaf ([E, ...] under ``experts``) by its path:
+    the experts whose gradient is all zero, those no token reached."""
+    flat, _ = pytree.tree_flatten_with_path(grads)
+    return {pytree.keystr(path): int((g.flatten(1).abs().amax(1) == 0).sum())
+            for path, g in flat if "'experts'" in pytree.keystr(path)}
+
+
+def on_device(batch: dict, device, dtype: torch.dtype) -> dict:
+    """A numpy batch on ``device``: tokens and labels as int64 (the index
+    type of ``torch.take_along_dim``), float stubs in ``dtype``, ``pos3``
+    as it is."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        if k in ("tokens", "labels"):
+            t = t.to(torch.int64)
+        elif t.is_floating_point():
+            t = t.to(dtype)
+        out[k] = t
+    return out
+
+
 def profiled_step(step_fn, params, opt, batch) -> dict:
     """One train step under ``torch.profiler``: the device's busy time
     (the sum of its kernels, copies and fills) and the device time of the
@@ -1624,36 +1827,159 @@ def profiled_step(step_fn, params, opt, batch) -> dict:
     return {"device_busy_ms": busy / 1e3, "ops": by_op}
 
 
-def train_full(cfg, device) -> dict:
-    """TRAIN_FULL on ``cfg`` from make_state(cfg, seed=0): the step-0
-    gradient of every parameter (loss_and_grads, outside the timed steps),
-    then the steps of build_train_step, each timed to the host's copy of
-    its loss (the copy waits for the whole step), then one more step under
-    the profiler (:func:`profiled_step`), not timed."""
-    p = TRAIN_FULL
+@contextlib.contextmanager
+def scans_timed(device):
+    """Time, for the duration, each call of a Mamba2 or xLSTM block
+    (``models/ssm.py``, whose time loops are most of its work) on the
+    host's clock, the device synchronised at its start and end.  Yields
+    the list of seconds.  Forward calls only: remat calls each block again
+    in the backward pass (counted), whose own loop over the steps is
+    autograd's (not counted)."""
+    names = ("mamba_apply", "mlstm_apply", "slstm_apply")
+    saved = {name: getattr(M.S, name) for name in names}
+    seconds = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(M.S, name, timed(fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(M.S, name, fn)
+
+
+@contextlib.contextmanager
+def gradients_reported():
+    """Read, for the duration, the gradients of the first call of the
+    train step's ``loss_and_grads`` (which ``build_train_step`` looks up
+    at each call) as it returns them: yields a dict that then holds their
+    :func:`gradient_report` and :func:`unreached_experts`, so that no
+    separate backward pass is needed for them."""
+    compute, report = launch_steps.loss_and_grads, {}
+
+    def reporting(*args, **kwargs):
+        loss, grads = compute(*args, **kwargs)
+        if not report:
+            report.update(gradients=gradient_report(grads),
+                          unreached=unreached_experts(grads))
+        return loss, grads
+
+    launch_steps.loss_and_grads = reporting
+    try:
+        yield report
+    finally:
+        launch_steps.loss_and_grads = compute
+
+
+def train_full(cfg, device, sizes: dict = TRAIN_FULL) -> dict:
+    """``sizes`` (TRAIN_FULL, FAMILIES_TRAIN_FULL) on ``cfg`` from
+    make_state(cfg, seed=0), on batches of SyntheticLM(cfg.vocab, seq,
+    batch, seed=0) with the stubs of family_extras(seed=0) in cfg's type:
+    the steps of build_train_step, each timed to the host's copy of its
+    loss (the copy waits for the whole step), the first step's gradient
+    of every parameter read as it computes it (:func:`gradients_reported`,
+    in that step's time), then one more step under the profiler
+    (:func:`profiled_step`), not timed.  A config with time loops
+    (SCAN_KINDS) takes one timed step, with its loops' host seconds
+    (:func:`scans_timed`), and none profiled."""
+    p = sizes
+    scans = any(kind in SCAN_KINDS for kind in cfg.pattern)
     # unpacked so that no reference keeps the initial state alive
     params, opt = make_state(cfg, seed=0, device=device).values()
     data = SyntheticLM(cfg.vocab, p["seq"], p["batch"], seed=0)
-    _, grads = loss_and_grads(cfg, params, device_batch(data.batch(0), device))
-    report = gradient_report(grads)
-    del grads
+    stubs = family_extras(cfg, p["batch"], p["seq"], 0)
+
+    def batch(step):
+        return on_device(dict(data.batch(step), **stubs), device,
+                         M.torch_dtype(cfg))
     step_fn = build_train_step(cfg, total_steps=p["steps"],
                                base_lr=p["base_lr"])
-    losses, norms, seconds = [], [], []
-    for step in range(p["steps"]):
-        t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt,
-                                       device_batch(data.batch(step), device))
-        losses.append(float(metrics["loss"]))
-        if params["emb"].is_cuda:
-            torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+    losses, norms, seconds, scan_s = [], [], [], []
+    for step in range(1 if scans else p["steps"]):
+        with (scans_timed(device) if scans
+              else contextlib.nullcontext([])) as calls, \
+                (gradients_reported() if step == 0
+                 else contextlib.nullcontext()) as reported:
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch(step))
+            losses.append(float(metrics["loss"]))
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+        if step == 0:
+            report = reported
+        scan_s.append(sum(calls))
         norms.append(float(metrics["grad_norm"]))
-    prof = profiled_step(step_fn, params, opt,
-                         device_batch(data.batch(p["steps"]), device))
-    return {"gradients": report, "losses": losses, "grad_norms": norms,
-            "step_s": seconds, "profile": prof,
-            "n_params": sum(t.numel() for t in pytree.tree_leaves(params))}
+    prof = (None if scans else
+            profiled_step(step_fn, params, opt, batch(len(seconds))))
+    return {**report, "losses": losses, "grad_norms": norms,
+            "step_s": seconds, "scan_s": scan_s if scans else None,
+            "profile": prof, "stubs": sorted(stubs),
+            "n_params": sum(t.numel() for t in pytree.tree_leaves(params)),
+            "n_active": cfg.active_param_count()}
+
+
+def full_train_checked(name: str, cfg, res: dict, sizes: dict, peak: int,
+                       card: str, cut: str) -> None:
+    """Phases 9 and 12: hold a :func:`train_full` result of ``cfg``
+    (``name``, cut as ``cut`` says) to every gradient finite and non-zero
+    (experts no token reached are counted, not failed) and every loss and
+    norm finite, and print its step time, tokens/s, peak memory and mfu on
+    the config's active parameters beside the card (``card``: the
+    nvidia-smi name and power limit); raises where a check fails."""
+    bad = {k: v for k, v in res["gradients"].items()
+           if not v[0] or v[1] == 0.0}
+    norms = [v[1] for v in res["gradients"].values()]
+    unreached = {k: v for k, v in res["unreached"].items() if v}
+    print(f"full train {name} step 0: {len(norms)} parameter gradients, all "
+          f"finite and non-zero: {not bad}; norms {min(norms)!r} to "
+          f"{max(norms)!r}; stacked expert leaves "
+          f"{len(res['unreached'])}, experts no token reached "
+          f"{unreached or 'none'}")
+    if bad:
+        raise AssertionError(f"full train {name}: gradients missing, zero "
+                             f"or not finite: {bad}")
+    if not all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
+        raise AssertionError(f"full train {name}: {res}")
+    tokens = sizes["batch"] * sizes["seq"]
+    steps = res["step_s"]
+    step_s = statistics.median(steps[1:]) if len(steps) > 1 else steps[0]
+    which = (f"median of steps 2-{len(steps)}" if len(steps) > 1
+             else "its one timed step")
+    mfu = 6 * res["n_active"] * tokens / step_s / BF16_TENSOR_FLOPS_PER_S
+    print(f"full train ({name}, {cut}, {len(cfg.pattern)} blocks, d "
+          f"{cfg.d_model}, bf16, remat {cfg.remat}, {sizes}, stubs "
+          f"{res['stubs']}) on [{card}]: losses {res['losses']}, grad "
+          f"norms {res['grad_norms']}; step seconds {steps}; {which} "
+          f"{step_s * 1e3:.3f} ms, {tokens / step_s:.1f} tokens/s; peak "
+          f"memory {peak} B; mfu {mfu:.4f} (6 N tokens / step / "
+          f"{BF16_TENSOR_FLOPS_PER_S:.4g}, N = {res['n_active']} active "
+          f"parameters by cfg.active_param_count(), the JAX package's "
+          f"count, of the {res['n_params']} the tree holds; remat's "
+          f"recompute not counted)", flush=True)
+    if res["scan_s"] is not None:
+        print(f"full train {name}: the Mamba2/xLSTM blocks' forward and "
+              f"recompute (host wall time, device synchronised around "
+              f"each) {res['scan_s'][-1]:.3f} s of the step's "
+              f"{steps[-1]:.3f} s ({res['scan_s'][-1] / steps[-1]:.4f}; "
+              f"their loops' backward not counted); no profiled step")
+        return
+    prof = res["profile"]
+    print(f"full train {name}, one more step under torch.profiler: device "
+          f"busy {prof['device_busy_ms']:.3f} ms, "
+          f"{prof['device_busy_ms'] / 1e3 / step_s:.4f} "
+          f"of the median step; device ms by ATen op (calls):")
+    for op, ms, count in prof["ops"][:TRAIN_PROFILE_ROWS]:
+        print(f"  {op}: {ms:.3f} ms ({count})")
 
 
 def train_phase(card: str) -> None:
@@ -1692,37 +2018,9 @@ def train_phase(card: str) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = train_full(full, "cuda")
-    peak = torch.cuda.max_memory_allocated()
-    bad = {k: v for k, v in res["gradients"].items()
-           if not v[0] or v[1] == 0.0}
-    norms = [v[1] for v in res["gradients"].values()]
-    print(f"full train step 0: {len(norms)} parameter gradients, all finite "
-          f"and non-zero: {not bad}; norms {min(norms)!r} to "
-          f"{max(norms)!r}")
-    if bad:
-        raise AssertionError(f"full train: gradients missing, zero or not "
-                             f"finite: {bad}")
-    if not all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
-        raise AssertionError(f"full train: {res}")
-    p = TRAIN_FULL
-    tokens = p["batch"] * p["seq"]
-    step_s = statistics.median(res["step_s"][1:])
-    mfu = 6 * res["n_params"] * tokens / step_s / BF16_TENSOR_FLOPS_PER_S
-    print(f"full train ({SERVE_ARCH}, {full.n_layers} layers, d "
-          f"{full.d_model}, bf16, remat {full.remat}, {p}) on [{card}]: "
-          f"losses {res['losses']}, grad norms {res['grad_norms']}; step "
-          f"seconds {res['step_s']}; median of steps 2-{p['steps']} "
-          f"{step_s * 1e3:.3f} ms, {tokens / step_s:.1f} tokens/s; peak "
-          f"memory {peak} B; {res['n_params']} parameters, mfu "
-          f"{mfu:.4f} (6 N tokens / step / {BF16_TENSOR_FLOPS_PER_S:.4g}, "
-          f"remat's recompute not counted)")
-    prof = res["profile"]
-    print(f"full train, one more step under torch.profiler: device busy "
-          f"{prof['device_busy_ms']:.3f} ms, "
-          f"{prof['device_busy_ms'] / 1e3 / step_s:.4f} "
-          f"of the median step; device ms by ATen op (calls):")
-    for name, ms, count in prof["ops"][:TRAIN_PROFILE_ROWS]:
-        print(f"  {name}: {ms:.3f} ms ({count})")
+    full_train_checked(SERVE_ARCH, full, res, TRAIN_FULL,
+                       torch.cuda.max_memory_allocated(), card,
+                       "whole depth")
     launched = ops.launch_counts()
     print(f"train phase in {time.perf_counter() - t_phase:.3f} s; launches "
           f"{launched}")
@@ -1818,15 +2116,15 @@ def routing_recorded():
     def recording_route(p, cfg, xf, capacity_factor=1.25):
         r = route(p, cfg, xf, capacity_factor)
         k = cfg.experts_per_tok
-        top = torch.topk(r.gates, k + 1, dim=-1).values
+        top = torch.topk(r.gates.detach(), k + 1, dim=-1).values
         rec["pairs"].append(r.keep.numel())
         rec["kept"].append(r.keep.sum())
         rec["gate_margin"].append((top[:, k - 1] - top[:, k]).min())
         return r
 
-    def recording_logits(cfg, params, h):
-        lg = logits_of(cfg, params, h)
-        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+    def recording_logits(cfg, params, h, **kwargs):
+        lg = logits_of(cfg, params, h, **kwargs)
+        top = torch.topk(lg[:, -1].detach().float(), 2, dim=-1).values
         rec["logit_margin"].append((top[:, 0] - top[:, 1]).min())
         return lg
 
@@ -2205,6 +2503,108 @@ def planning_phase(card: str) -> None:
           f"{torch.cuda.max_memory_allocated()} B", flush=True)
     del p, x, single, ep
     print(f"planning phase in {time.perf_counter() - t_phase:.3f} s")
+
+
+# -- phase 12: the training of the LM families and the other dense configs ---
+# On CPU tensors these also run, at the reduced size, in the CPU tests.
+
+def train_config(arch: str):
+    """``arch`` at its published widths in bf16, cut as TRAIN_CUTS says."""
+    return dataclasses.replace(configs.get(arch), **TRAIN_CUTS.get(arch, {}))
+
+
+def cut_text(arch: str) -> str:
+    """TRAIN_CUTS' row of ``arch`` as the published value -> the trained
+    one, field by field."""
+    published = configs.get(arch)
+    return ", ".join(f"{field} {getattr(published, field)} -> {value}"
+                     for field, value in TRAIN_CUTS.get(arch, {}).items()
+                     ) or "whole"
+
+
+def family_train_batch(cfg, batch: int, seq: int, step: int) -> dict:
+    """Step ``step``'s numpy batch of the pinned training: the tokens and
+    labels the first and last ``seq`` columns of family_prompts(cfg,
+    batch, seq + 1, seed=step), with the stubs of family_extras(cfg, batch,
+    seq, seed=step)."""
+    toks = family_prompts(cfg, batch, seq + 1, step)
+    return dict(family_extras(cfg, batch, seq, step), tokens=toks[:, :-1],
+                labels=toks[:, 1:])
+
+
+def families_train_pinned(arch: str, device) -> tuple:
+    """Phase 12 (a) for ``arch``: FAMILIES_TRAIN_PINNED's steps of
+    build_train_step on the pinned config and weights
+    (``jax_layout_params(cfg, seed=0)``) with zero AdamW state, on
+    :func:`family_train_batch`'s batches.  Returns each step's loss,
+    learning rate, gradient norm and update L1 norm, and the routing
+    summary of the steps (:func:`routing_summary`)."""
+    cfg = family_config(arch)
+    p = FAMILIES_TRAIN_PINNED
+    tree = jax_layout_params(cfg, seed=0)
+    zeros = pytree.tree_map(np.zeros_like, tree)
+    params, opt = state_from_numpy(cfg, tree, AdamWState(0, zeros, zeros),
+                                   device).values()
+    step_fn = build_train_step(cfg, total_steps=p["steps"],
+                               base_lr=p["base_lr"])
+    rows = []
+    with routing_recorded() as rec:
+        for step in range(p["steps"]):
+            batch = on_device(family_train_batch(cfg, p["batch"], p["seq"],
+                                                 step), device,
+                              M.torch_dtype(cfg))
+            new, opt, metrics = step_fn(params, opt, batch)
+            rows.append({"loss": float(metrics["loss"]),
+                         "lr": float(metrics["lr"]),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "step_l1": step_l1(new, params)})
+            params = new
+    return rows, routing_summary(rec)
+
+
+def families_train_phase(card: str) -> None:
+    """Phase 12 on the card (``card``: the nvidia-smi name and power
+    limit); raises where a check fails."""
+    phase("families-train")
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    # (a) pinned: reduced, fp32, the JAX package's metrics
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        rows, routing = families_train_pinned(arch, "cuda")
+        want = FAMILIES_TRAIN_REFERENCE[arch]
+        for step, (g, w) in enumerate(zip(rows, want)):
+            print(f"pinned train (reduced {arch}, fp32) step {step}: "
+                  f"{json.dumps(g)}; JAX {json.dumps(w)}")
+        print(f"pinned train {arch} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        tol = FAMILIES_TRAIN_TOL.get(arch, TRAIN_TOL)
+        if len(rows) != len(want) or not all(
+                train_metrics_within(g, w, tol) for g, w in zip(rows, want)):
+            raise AssertionError(
+                f"pinned train of {arch}: not within {tol} of the "
+                f"JAX package's; smallest top-k gate margin "
+                f"{routing['gate_margin']!r}, MoE pairs dropped by "
+                f"capacity {routing['dropped']} of {routing['pairs']}")
+    # (b) published widths, bf16, remat, cut to what the card holds
+    for arch in FAMILY_ARCHS:
+        cfg = train_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_full(cfg, "cuda", FAMILIES_TRAIN_FULL)
+        full_train_checked(arch, cfg, res, FAMILIES_TRAIN_FULL,
+                           torch.cuda.max_memory_allocated(), card,
+                           f"cut: {cut_text(arch)}")
+        print(f"full train {arch} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        del res
+    launched = ops.launch_counts()
+    print(f"families-train phase in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches {launched}")
+    if any(launched.values()):
+        raise AssertionError(f"the families-train phase launched a kernel: "
+                             f"{launched}")
 
 
 def main() -> int:
@@ -2971,6 +3371,9 @@ def main() -> int:
 
     # -- 11. distributed planning: the dry-run, the expert-parallel MoE ------
     planning_phase(card)
+
+    # -- 12. the training of the families and the other dense configs -------
+    families_train_phase(card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,8 +16,11 @@ from repro.launch.steps import build_prefill_step, build_serve_step
 from repro.models import model as RM
 
 # the dense configs the port's model runs, each reduced for the CPU:
-# tinyllama-1.1b (GQA), qwen3-4b (qk-norm, tied embeddings), llama2-7b (MHA)
-DENSE_ARCHS = ("tinyllama-1.1b", "qwen3-4b", "llama2-7b")
+# tinyllama-1.1b (GQA), qwen3-4b (qk-norm, tied embeddings), llama2-7b
+# (MHA), minicpm-2b (MHA, tied embeddings, the WSD schedule),
+# stablelm-1.6b (MHA)
+DENSE_ARCHS = ("tinyllama-1.1b", "qwen3-4b", "llama2-7b", "minicpm-2b",
+               "stablelm-1.6b")
 
 
 def jax_config(arch: str, dtype: str = "float32", pattern=None):
@@ -100,3 +103,29 @@ def extras_tokens(cfg, tree, tokens, extras, max_new: int):
         nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         out.append(np.asarray(nxt))
     return np.stack(out, axis=1).tolist()
+
+
+def train_rows(cfg, tree, batches, total_steps: int, base_lr: float):
+    """The JAX package's train step (``repro/launch/steps.py``
+    ``build_train_step``) from zero AdamW moments on the parameter tree
+    ``tree``, one step a numpy batch of ``batches``: each step's loss,
+    learning rate, gradient norm and the L1 norm of its update (float64
+    sums), the counterpart of ``chip_smoke.families_train_pinned``."""
+    from repro.launch.steps import build_train_step
+    from repro.optim import adamw_init
+    step_fn = jax.jit(build_train_step(cfg, total_steps=total_steps,
+                                       base_lr=base_lr))
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    opt = adamw_init(params)
+    rows = []
+    for batch in batches:
+        new, opt, m = step_fn(params, opt, {k: jnp.asarray(v)
+                                            for k, v in batch.items()})
+        l1 = sum(float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).sum())
+                 for a, b in zip(jax.tree_util.tree_leaves(new),
+                                 jax.tree_util.tree_leaves(params)))
+        rows.append({"loss": float(m["loss"]), "lr": float(m["lr"]),
+                     "grad_norm": float(m["grad_norm"]), "step_l1": l1})
+        params = new
+    return rows

@@ -334,3 +334,76 @@ def test_params_from_numpy_takes_bf16_trees_exactly():
     p32 = M.params_from_numpy(cfg, tree, "cpu", torch.float32)
     assert p32["layers"][0]["mlp"]["w2"].dtype == torch.float32
     assert torch.equal(p32["emb"], p["emb"].float())
+
+
+# -- lm_loss, gradients and train steps of the dense configs -----------------
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the test, restored after (as
+    tests/test_torch_lm_train.py's fixture): at these sizes threads do
+    not pay, and beside other test processes they thrash."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_loss_and_every_gradient_equal_jax(arch, one_thread):
+    """``lm_loss`` and every gradient within 1e-5
+    (``tests/_family_checks.py``); the train steps of these configs are
+    held in tests/test_torch_families_train.py and, for tinyllama-1.1b,
+    tests/test_torch_lm_train.py."""
+    from _family_checks import check_loss_and_gradients
+    check_loss_and_gradients(arch)
+
+
+def test_minicpm_wsd_train_steps_equal_jax(one_thread):
+    """minicpm-2b trains with WSD: both packages' train steps at steps 10,
+    11 and 12 of a 12-step schedule (10 warmup steps, 1 stable, 1 decay:
+    the plateau, the decay's start and its floor) on the JAX init, from
+    zero moments: the learning rates equal (and not the cosine
+    schedule's), the other metrics within TRAIN_TOL."""
+    import chip_smoke
+    from _family_checks import _batch_np, _batch_t, pair
+    from repro.launch.steps import build_train_step as ref_train_step
+    from repro.optim import adamw as repro_adamw
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import state_from_numpy
+    from repro_torch.optim import make_schedule
+    pr = pair("minicpm-2b")
+    assert pr.cfg_t.schedule == "wsd"
+    total, first = 12, 10
+    step_j = jax.jit(ref_train_step(pr.cfg_j, total_steps=total,
+                                    base_lr=1e-3))
+    step_t = build_train_step(pr.cfg_t, total_steps=total, base_lr=1e-3)
+    p_j = pr.p_j
+    opt_j = repro_adamw.adamw_init(p_j)._replace(
+        step=jnp.asarray(first, jnp.int32))
+    zeros = jax.tree_util.tree_map(np.zeros_like, pr.tree)
+    state = state_from_numpy(pr.cfg_t, pr.tree, repro_adamw.AdamWState(
+        np.int32(first), zeros, zeros), "cpu")
+    p_t, opt_t = state["params"], state["opt"]
+    rates = []
+    for seed in range(3):
+        batch = _batch_np(pr, 20 + seed)
+        new_j, opt_j, m_j = step_j(p_j, opt_j, {k: jnp.asarray(v)
+                                                for k, v in batch.items()})
+        new_t, opt_t, m_t = step_t(p_t, opt_t, _batch_t(batch))
+        assert float(m_t["lr"]) == float(m_j["lr"])
+        l1 = sum(float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).sum())
+                 for a, b in zip(jax.tree_util.tree_leaves(new_j),
+                                 jax.tree_util.tree_leaves(p_j)))
+        got = {"loss": float(m_t["loss"]), "lr": float(m_t["lr"]),
+               "grad_norm": float(m_t["grad_norm"]),
+               "step_l1": chip_smoke.step_l1(new_t, p_t)}
+        want = {"loss": float(m_j["loss"]), "lr": float(m_j["lr"]),
+                "grad_norm": float(m_j["grad_norm"]), "step_l1": l1}
+        assert chip_smoke.train_metrics_within(got, want), (got, want)
+        rates.append(float(m_t["lr"]))
+        p_j, p_t = new_j, new_t
+    cosine = make_schedule("cosine", 1e-3, total)
+    assert rates != [float(cosine(s)) for s in range(first, first + 3)]
+    assert rates == pytest.approx([1e-3, 1e-3, 1e-4])
