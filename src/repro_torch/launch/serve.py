@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, spans
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models import model as M
@@ -40,7 +40,7 @@ class Request:
         self.prompt = prompt
         self.max_new = max_new
         self.generated: List[int] = []
-        self.t_arrive = time.perf_counter()
+        self.t_arrive: Optional[float] = None  # serve_requests took it
         self.t_start: Optional[float] = None   # its batch's prefill began
         self.t_first: Optional[float] = None   # its first token on the host
         self.t_done: Optional[float] = None
@@ -69,35 +69,61 @@ def serve_requests(cfg: ArchConfig, params: M.Params,
     prefill_fn = build_prefill_step(cfg)
     serve_fn = build_serve_step(cfg)
     max_seq = prompt_len + max_new
+    taken = time.perf_counter()
+    for r in requests:
+        r.t_arrive = taken
     queue = list(requests)
     done: List[Request] = []
-    while queue:
-        active = [queue.pop(0) for _ in range(min(batch, len(queue)))]
-        t_start = time.perf_counter()
-        tokens = torch.from_numpy(np.stack([r.prompt for r in active])).to(
-            device=device, dtype=torch.int64)
+    with spans.under_profiler():
+        while queue:
+            active = [queue.pop(0) for _ in range(min(batch, len(queue)))]
+            with spans.batch(active):
+                _serve_batch(cfg, params, active, prefill_fn, serve_fn,
+                             prompt_len, max_new, max_seq, device)
+            done.extend(active)
+    return done
+
+
+def _serve_batch(cfg: ArchConfig, params: M.Params, active: List[Request],
+                 prefill_fn, serve_fn, prompt_len: int, max_new: int,
+                 max_seq: int, device: torch.device | str) -> None:
+    """Prefill ``active`` once, then decode until each has its tokens.
+    The span ``serve.prefill`` runs from ``t_start`` to ``t_first``, the
+    same clock readings; each ``serve.decode_step`` from its step's launch
+    to its tokens on the host."""
+    t_ns = time.perf_counter_ns()
+    t_start = t_ns / 1e9
+    pending = spans.begin("serve.prefill", t_ns)   # ended by its sync
+    tokens = torch.from_numpy(np.stack([r.prompt for r in active])).to(
+        device=device, dtype=torch.int64)
+    with spans.span("serve.cache_init"):
         caches = M.init_cache(cfg, len(active), max_seq, device)
+    with spans.span("model.prefill"):
         logits, caches = prefill_fn(params, caches, {"tokens": tokens})
         nxt = torch.argmax(logits[:, -1], dim=-1)
-        for step in range(max_new):
+    for step in range(max_new):
+        with spans.span("serve.sync"):
             toks = nxt.tolist()                 # waits for the device
-            now = time.perf_counter()
-            for r, tok in zip(active, toks):
-                if r.t_start is None:
-                    r.t_start, r.t_first = t_start, now
-                if r.t_done is None:
-                    r.generated.append(tok)
-                    if len(r.generated) >= r.max_new:
-                        r.t_done = time.perf_counter()
-            if all(r.t_done is not None for r in active):
-                break
+        now_ns = time.perf_counter_ns()
+        spans.end(pending, now_ns)
+        now = now_ns / 1e9
+        for r, tok in zip(active, toks):
+            if r.t_start is None:
+                r.t_start, r.t_first = t_start, now
+            if r.t_done is None:
+                r.generated.append(tok)
+                if len(r.generated) >= r.max_new:
+                    r.t_done = time.perf_counter()
+        if all(r.t_done is not None for r in active):
+            break
+        pending = spans.begin("serve.decode_step")
+        with spans.span("model.decode"):
             logits, caches = serve_fn(params, caches, nxt, prompt_len + step)
             nxt = torch.argmax(logits, dim=-1)
-        for r in active:
-            if r.t_done is None:
-                r.t_done = time.perf_counter()
-            done.append(r)
-    return done
+    spans.end(pending)
+    for r in active:
+        if r.t_done is None:
+            r.t_done = time.perf_counter()
 
 
 def serve(arch: str, n_requests: int, batch: int, prompt_len: int,

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial
 
+from repro_torch import spans
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.launch.sharding import _fit, placements
@@ -390,6 +391,9 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     kpos = torch.arange(smax, device=q.device)[None, :]
     qpos = idx + torch.arange(s, device=q.device)[:, None]
     mask = kpos <= qpos          # causal over the filled prefix
+    if spans.on() and ck.dtype != torch.float32:
+        # the fp32 copies of the whole cache ``.float()`` makes below
+        spans.count("attn.cast_bytes", (ck.numel() + cv.numel()) * 4)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
                           ck.float()) / math.sqrt(dh)
     logits = torch.where(mask, logits, -1e30)

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
@@ -285,9 +286,10 @@ def forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
         else:
             body, p_l = kind, params["layers"][i]
         if caches is not None:
-            x, nc = block_apply(body, cfg, p_l, x, positions,
-                                _with_index(caches[i], index), pos3,
-                                enc_out, flash)
+            with spans.block(kind, i):
+                x, nc = block_apply(body, cfg, p_l, x, positions,
+                                    _with_index(caches[i], index), pos3,
+                                    enc_out, flash)
             caches[i] = {k: v for k, v in nc.items() if k != "index"}
         elif cfg.remat and kind != "sattn":
             x = checkpoint(_block_out, body, cfg, p_l, x, positions, pos3,
@@ -419,7 +421,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, caches,
                                     enc_feats, flash)
     h, caches = forward(cfg, params, x, positions, caches=caches, index=0,
                         pos3=pos3, enc_out=enc_out, flash=flash)
-    return logits_of(cfg, params, h[:, -1:]), caches
+    with spans.span("model.head"):
+        return logits_of(cfg, params, h[:, -1:]), caches
 
 
 def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
@@ -434,4 +437,5 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     pos3 = positions.expand(3, b, 1) if cfg.mrope else None
     h, caches = forward(cfg, params, x, positions, caches=caches,
                         index=index, pos3=pos3, enc_out=enc_out)
-    return logits_of(cfg, params, h)[:, 0], caches
+    with spans.span("model.head"):
+        return logits_of(cfg, params, h)[:, 0], caches

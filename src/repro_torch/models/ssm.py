@@ -8,7 +8,9 @@ exponentially-gated scalar (sLSTM) and matrix (mLSTM) memories per head.
 
 Each time scan (the reference's ``jax.lax.scan``) is a Python loop over
 the sequence in fp32, with the reference's order of operations; a step is
-a handful of small launches on the card.  ``softplus`` is
+a handful of small launches on the card.  Each loop is one ``ssm.scan``
+span of :mod:`repro_torch.spans`, its steps counted once a scan
+(``ssm.scan_steps``), never inside the loop's body.  ``softplus`` is
 ``logaddexp(x, 0)``, as ``jax.nn.softplus`` (``torch.nn.functional
 .softplus`` switches to ``x`` above a threshold).
 """
@@ -21,6 +23,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, _maybe_shard, data_axes,
                                        dense_init, merge_heads, rmsnorm,
@@ -126,12 +129,15 @@ def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
          x.new_zeros((b, di, n), dtype=torch.float32))
     u32 = shard_tokens(u.float())
     ys = []
-    for t in range(_steps(s)):
-        dt_t = dt[:, t]
-        decay = torch.exp(dt_t * a)                           # [B,di]
-        h = h * decay[..., None] + (dt_t * u32[:, t])[..., None] * \
-            bmat[:, t, None, :]
-        ys.append((h * cmat[:, t, None, :]).sum(-1))          # [B,di]
+    steps = _steps(s)
+    with spans.span("ssm.scan"):
+        for t in range(steps):
+            dt_t = dt[:, t]
+            decay = torch.exp(dt_t * a)                       # [B,di]
+            h = h * decay[..., None] + (dt_t * u32[:, t])[..., None] * \
+                bmat[:, t, None, :]
+            ys.append((h * cmat[:, t, None, :]).sum(-1))      # [B,di]
+    spans.count("ssm.scan_steps", steps)
     y = _stack_steps(ys, s).to(x.dtype)                       # [B,S,di]
     y = y + u * p["d_skip"]
     y = y * F.silu(z)
@@ -189,19 +195,23 @@ def mlstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
         c, n, m = state["c"], state["n"], state["m"]
 
     ys = []
-    for t in range(_steps(s)):
-        q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]
-        i_t, f_t = gi[:, t], gf[:, t]
-        logf = -softplus(-f_t)                               # log sigmoid(f)
-        m_new = torch.maximum(logf + m, i_t)
-        fgate = torch.exp(logf + m - m_new)                  # [B,H]
-        igate = torch.exp(i_t - m_new)
-        c = c * fgate[..., None, None] + \
-            igate[..., None, None] * (v_t[..., :, None] * k_t[..., None, :])
-        n = n * fgate[..., None] + igate[..., None] * k_t
-        denom = torch.clamp_min(torch.abs((n * q_t).sum(-1)), 1.0)  # [B,H]
-        ys.append((c * q_t[..., None, :]).sum(-1) / denom[..., None])
-        m = m_new
+    steps = _steps(s)
+    with spans.span("ssm.scan"):
+        for t in range(steps):
+            q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]
+            i_t, f_t = gi[:, t], gf[:, t]
+            logf = -softplus(-f_t)                           # log sigmoid(f)
+            m_new = torch.maximum(logf + m, i_t)
+            fgate = torch.exp(logf + m - m_new)              # [B,H]
+            igate = torch.exp(i_t - m_new)
+            c = c * fgate[..., None, None] + igate[..., None, None] * \
+                (v_t[..., :, None] * k_t[..., None, :])
+            n = n * fgate[..., None] + igate[..., None] * k_t
+            denom = torch.clamp_min(torch.abs((n * q_t).sum(-1)),
+                                    1.0)                     # [B,H]
+            ys.append((c * q_t[..., None, :]).sum(-1) / denom[..., None])
+            m = m_new
+    spans.count("ssm.scan_steps", steps)
     y = _stack_steps(ys, s)                                  # [B,S,H,dh]
     y = rmsnorm(y.to(x.dtype), p["out_norm"], cfg.norm_eps)
     out = merge_heads(y) @ p["wo"]
@@ -250,18 +260,21 @@ def slstm_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
     r_gates = p["r_gates"].float()
     ys = []
-    for t in range(_steps(s)):
-        g = wx[:, t] + hid @ r_gates
-        gi, gf, gz, go = g.chunk(4, dim=-1)
-        logf = -softplus(-gf)
-        m_new = torch.maximum(logf + m, gi)
-        fgate = torch.exp(logf + m - m_new)
-        igate = torch.exp(gi - m_new)
-        c = fgate * c + igate * torch.tanh(gz)
-        n = fgate * n + igate
-        hid = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        ys.append(hid)
+    steps = _steps(s)
+    with spans.span("ssm.scan"):
+        for t in range(steps):
+            g = wx[:, t] + hid @ r_gates
+            gi, gf, gz, go = g.chunk(4, dim=-1)
+            logf = -softplus(-gf)
+            m_new = torch.maximum(logf + m, gi)
+            fgate = torch.exp(logf + m - m_new)
+            igate = torch.exp(gi - m_new)
+            c = fgate * c + igate * torch.tanh(gz)
+            n = fgate * n + igate
+            hid = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
+            m = m_new
+            ys.append(hid)
+    spans.count("ssm.scan_steps", steps)
     y = _stack_steps(ys, s).to(x.dtype)
     out = y @ p["wo"]
     return x + out, {"c": c, "n": n, "hid": hid, "m": m}
