@@ -7,14 +7,15 @@ Phases, each printed as it ends; any failure exits non-zero before the
 last line:
 
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` name/count;
-2. build  — ``csrc/ndp.cu`` and ``csrc/attention.cu`` compiled for sm_90a
-   from this checkout; ptxas registers and spills, and per kernel its SASS
-   counts and loop bodies (the 16-byte loops of the prefix adder, the IFP
-   multiplier and the match line, a unit of work at a time, with their
-   opcodes); every INT8 GEMM instance must run on the tensor cores (IMMA,
-   no IDP) without spilling, and every 16-byte instance of the adder, the
-   IFP multiplier and the match line must run a loop that holds a 16-byte
-   load, without spilling;
+2. build  — ``csrc/ndp.cu``, ``csrc/attention.cu`` and ``csrc/scan.cu``
+   compiled for sm_90a from this checkout; ptxas registers and spills,
+   and per kernel its SASS counts and loop bodies (the 16-byte loops of
+   the prefix adder, the IFP multiplier and the match line, a unit of
+   work at a time, with their opcodes); every INT8 GEMM instance must
+   run on the tensor cores (IMMA, no IDP) without spilling, every 16-byte
+   instance of the adder, the IFP multiplier and the match line must run
+   a loop that holds a 16-byte load, without spilling, and the selective
+   scan must not spill;
 3. kernels — each CUDA kernel held exactly equal to its plain PyTorch
    version over the kernel-test grids and the shapes the replays give it
    (the bit-plane multiplier and the prefix adder also on a ragged n, the
@@ -34,7 +35,11 @@ last line:
    at one shape beyond L2 for the IFP multiplier and the match line, and
    for the INT8 GEMM at llama2_infer's and llm_train's shapes, forward and
    backward, and for flash attention at each shape phase 10 gives it
-   (``FAMILY_ATTN``, one query token against 256 keys among them);
+   (``FAMILY_ATTN``, one query token against 256 keys among them); the
+   selective scan (Mamba2's time loop in one launch) at zamba2's serving
+   prefill and one decode step from the state it left, within
+   ``SCAN_TOL`` of its plain version, timed beside its plain loop and its
+   bound (no PyTorch call computes it);
 4. pipeline — jacobi1d, aes, xor_filter, heat3d, llama2_infer and
    llm_train at paper scale through the package's entry points: numeric
    run on the card (its outputs' digest must be the JAX package's; fp32
@@ -113,8 +118,9 @@ last line:
    bf16 from a seeded random init, dbrx and deepseek cut to 4 layers
    (their whole depth outgrows the card), one batch of 4 x 1024-token
    prompts with their stubs, prefill and 7 decode steps: the kernel's
-   launches exactly ``FAMILIES_K6``, every call of a recorded second run
-   within ``ATTN_TOL`` of the plain version, the last-token logits
+   launches exactly ``FAMILIES_K6``, the selective scan's exactly
+   ``FAMILIES_SCAN`` (in the pinned runs too), every call of a recorded
+   second run within ``ATTN_TOL`` of the plain version, the last-token logits
    finite and within ``FAMILIES_LOGIT_RTOL`` of the einsum path's; the
    prefill and decode times, tokens/s, peak memory and the MoE share of
    (token, expert) pairs dropped by capacity are printed beside the
@@ -188,7 +194,7 @@ from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.hw.ssd_spec import DEFAULT_SSD  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import (_build, attention,  # noqa: E402
-                                 int8_matmul, ops, ref)
+                                 int8_matmul, ops, ref, scan)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch.elastic import run_elastic  # noqa: E402
 from repro_torch.launch.serve import (make_requests, serve,  # noqa: E402
@@ -272,6 +278,12 @@ ATTN_CASES += [shape[:4] for shape in FAMILY_ATTN]
 # version's fp32 ones; both then round the result to bf16 once (one ulp,
 # 2**-8 relative, apart).  The largest |diff| measured is in PERF.md.
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
+# The selective scan (no TPU kernel: it replaces jax.lax.scan) at zamba2's
+# serving shapes (B, S, di, N): a prefill of 32 x 1020 tokens, and one
+# decode step continuing its state; each output within SCAN_TOL of its
+# tensor's largest magnitude (tests/test_torch_kernels.py gives the why)
+SCAN_SHAPES = ((32, 1020, 4096, 64), (32, 1, 4096, 64))
+SCAN_TOL = 1e-4
 # q and k drawn x8 (bf16): logits of tens, so the running max moves inside
 # a 64-key tile and rescales by factors that underflow.  fp32 draws x4: at
 # x8 the fp32 plain version is itself ~3.5e-5 from the exact (float64)
@@ -344,6 +356,14 @@ FAMILIES_K6 = {"qwen2-vl-2b": (28, 0), "zamba2-1.2b": (6, 0),
                "dbrx-132b": (4, 0), "deepseek-v2-236b": (0, 0),
                "qwen3-4b": (36, 0), "minicpm-2b": (40, 0),
                "stablelm-1.6b": (24, 0), "llama2-7b": (32, 0)}
+# selective-scan launches of phase 10 (the pinned runs, the full-width
+# run), one a Mamba2 block a prefill and a decode step (scan_calls):
+# zamba2's 6 blocks of ZAMBA2_PERIOD over SERVE_PINNED's 2 batches of a
+# prefill and 3 steps; its 38 blocks over the timed and the recorded
+# generate of a prefill and 7 steps, and the einsum path's prefill; none
+# in the other families (no Mamba2 block)
+FAMILIES_SCAN = dict({arch: (0, 0) for arch in FAMILY_ARCHS},
+                     **{"zamba2-1.2b": (6 * 2 * 4, 38 * (2 * 8 + 1))})
 
 # The JAX package's greedy tokens of phase 10's pinned runs
 # (family_config(arch), jax_layout_params(cfg, seed=0)): "serve" the
@@ -2103,6 +2123,24 @@ def k6_calls(cfg, extras: dict, max_new: int) -> tuple:
             cfg.enc_layers + cross * (max_new - 1))
 
 
+def scan_calls(cfg, prefills: int, max_new: int) -> int:
+    """Selective-scan launches of ``prefills`` prefills under ``no_grad``,
+    each followed by ``max_new - 1`` decode steps: one a Mamba2 block a
+    prefill and a step."""
+    return cfg.pattern.count("mamba") * prefills * max_new
+
+
+def pinned_scan_calls(cfg, arch: str) -> int:
+    """Selective-scan launches of :func:`families_pinned`: the serving
+    loop's batches at SERVE_PINNED, and the stubbed run for
+    FAMILIES_EXTRAS."""
+    p = SERVE_PINNED
+    calls = scan_calls(cfg, -(-p["n_requests"] // p["batch"]), p["max_new"])
+    if arch in FAMILIES_EXTRAS:
+        calls += scan_calls(cfg, 1, FAMILIES_PINNED_EXTRAS["max_new"])
+    return calls
+
+
 @contextlib.contextmanager
 def routing_recorded():
     """Record, for the duration, each MoE layer's routed (token, expert)
@@ -2282,6 +2320,9 @@ def families_full(arch: str, device, sizes: dict, model=None) -> dict:
     res["einsum_logits"] = einsum_prefill_logits(cfg, params, tokens,
                                                  extras, device)
     res["k6_calls"] = k6_calls(cfg, extras, sizes["max_new"])
+    # the timed and the recorded generate, and the einsum path's prefill
+    res["scan_calls"] = (scan_calls(cfg, 2, sizes["max_new"])
+                         + scan_calls(cfg, 1, 1))
     res["stubs"] = sorted(extras)
     res["n_params"] = sum(t.numel() for t in pytree.tree_leaves(params))
     res["cfg"] = cfg
@@ -2309,6 +2350,15 @@ def families_phase(card: str, records: dict) -> None:
                     f"package's ({digests}); smallest top-k gate margin "
                     f"{routing['gate_margin']!r}, smallest logit margin "
                     f"{routing['logit_margin']!r}")
+        launched = ops.launch_counts()["selective_scan"]
+        want = FAMILIES_SCAN[arch][0]
+        if launched != want or pinned_scan_calls(
+                family_config(arch), arch) != want:
+            raise AssertionError(
+                f"pinned {arch}: selective_scan launches {launched}, by the "
+                f"config {pinned_scan_calls(family_config(arch), arch)}; "
+                f"want {want}")
+        records["selective_scan"]["launches"] += launched
     # (b) published widths, bf16, random weights from seed 0
     sizes = FAMILIES_FULL
     for arch in FAMILY_ARCHS:
@@ -2327,6 +2377,12 @@ def families_phase(card: str, records: dict) -> None:
         if len(res["calls"]) != sum(want):
             raise AssertionError(f"{arch}: the recorded run made "
                                  f"{len(res['calls'])} calls")
+        scans = ops.launch_counts()["selective_scan"]
+        want = FAMILIES_SCAN[arch][1]
+        if scans != want or res["scan_calls"] != want:
+            raise AssertionError(f"{arch}: selective_scan launches {scans}, "
+                                 f"by the config {res['scan_calls']}; want "
+                                 f"{want}")
         worst, shapes = 0.0, {}
         for q, k, v, causal, out in res["calls"]:
             plain = ref.flash_attention_plain(q, k, v, causal=causal)
@@ -2374,8 +2430,10 @@ def families_phase(card: str, records: dict) -> None:
               f"{res['again_tokens'] == res['tokens']}); in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         records["flash_attention"]["launches"] += sum(res["launches"])
+        records["selective_scan"]["launches"] += scans
         del res
-    print(f"families phase in {time.perf_counter() - t_phase:.3f} s")
+    print(f"families phase in {time.perf_counter() - t_phase:.3f} s; "
+          f"selective_scan launches {records['selective_scan']['launches']}")
 
 
 def moe_layer(cfg, device, dtype, seed: int = 0):
@@ -2663,6 +2721,11 @@ def main() -> int:
             if counts and (not got.get("IMMA") or got.get("IDP")):
                 raise AssertionError(f"{label} is not on the tensor cores: "
                                      f"{got}")
+        # the selective scan: its N states stay in registers
+        for name, use in usage.items():
+            if kernel_label(name).startswith("selective_scan_kernel") and \
+                    (use.get("spill_stores") or use.get("spill_loads")):
+                raise AssertionError(f"{kernel_label(name)} spills: {use}")
     print("  flash_attn_mma_kernel dynamic shared memory a block: "
           + ", ".join(f"dh {dh} {attention.mma_smem_bytes(dh)} B"
                       for dh in attention.HEAD_DIMS))
@@ -3138,6 +3201,63 @@ def main() -> int:
               f"max_abs_err {err!r}  [{card}]", flush=True)
         del q, k, v, got, want
 
+    # the selective scan at zamba2's serving shapes: the prefill's scan,
+    # then a decode step from the state it left.  Bound: dt and u in, y
+    # out, B and C in, h in and out, each once, over HBM; or the h update
+    # and the y sum, 4 flops a (row, step, channel, state), over the fp32
+    # peak.  No PyTorch call computes the function: library null.
+    h_prev = None
+    for b, s_, di, n in SCAN_SHAPES:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s_)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s_, di), generator=gen, device="cuda") - 1.0)
+        u = torch.randn((b, s_, di), generator=gen, device="cuda")
+        bc = torch.randn((b, s_, 2 * n), generator=gen, device="cuda") \
+            * n ** -0.5
+        a = -torch.exp(0.5 * torch.randn(di, generator=gen, device="cuda"))
+        h0 = (torch.randn((b, di, n), generator=gen, device="cuda") * 0.1
+              if h_prev is None else h_prev)
+        operands = (dt, u, bc[..., :n], bc[..., n:], a, h0)
+        with torch.no_grad():
+            got = ops.selective_scan(*operands)
+            want = scan.selective_scan_plain(*operands)
+            torch.cuda.synchronize()
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            rel = max(e / float(w.abs().max()) for e, w in zip(errs, want))
+            err = max(errs)
+            if rel > SCAN_TOL:
+                raise AssertionError(f"selective_scan {[b, s_, di, n]}: "
+                                     f"max |kernel - plain| / max |plain| "
+                                     f"{rel!r}")
+            ms = time_ms(lambda: ops.selective_scan(*operands), 20,
+                         clock_hz)
+            plain_ms = time_ms(lambda: scan.selective_scan_plain(
+                *operands), 1, clock_hz, rounds=3)
+        h_prev = got[1]
+        nbytes = 4 * (3 * b * s_ * di + 2 * b * s_ * n + 2 * b * di * n)
+        flops = 4 * b * s_ * di * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"selective_scan {[b, s_, di, n]} fp32 kernel {ms:.6f} ms  "
+              f"plain {plain_ms:.6f} ms  library null  bound "
+              f"{bound_ms:.6f} ms ({bound_by}; bytes {bytes_ms:.6f}: "
+              f"{nbytes} B, ops {ops_ms:.6f}: {flops} flops)  "
+              f"max_abs_err {err!r} (relative {rel!r})  [{card}]",
+              flush=True)
+        if s_ > 1:
+            records["selective_scan"] = {
+                "name": "selective_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/scan.cu",
+                "replaces": "jax.lax.scan, src/repro/models/ssm.py:87 "
+                            "(no Pallas kernel)", "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+        del dt, u, bc, a, h0, operands, got, want
+
     # -- 4. pipeline: each workload at paper scale through the entry points
     phase("pipeline")
     ops.reset_launch_counts()
@@ -3324,7 +3444,10 @@ def main() -> int:
           f"bf16 peak")
     records["flash_attention"]["launches"] = launched["flash_attention"]
 
-    unused = [k for k, r in records.items() if r["launches"] == 0]
+    # the selective scan runs in phase 10 (zamba2), which holds its
+    # launches to FAMILIES_SCAN
+    unused = [k for k, r in records.items()
+              if r["launches"] == 0 and k != "selective_scan"]
     if unused:
         raise AssertionError(f"no replay or serve launched {unused}")
 

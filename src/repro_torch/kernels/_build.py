@@ -51,6 +51,12 @@ SIGNATURES = {
         "ndp_flash_attn_bf16": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
         "ndp_flash_attn_bf16_smem_bytes": (_I,),
     },
+    # dt, u, B, C, a, h0, y, h, batch, steps, di, n, B's and C's batch and
+    # step strides, stream
+    "scan": {
+        "ndp_selective_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _N, _N,
+                                   _N, _I, _N, _N, _N, _N, _P),
+    },
 }
 _SOURCE_OF = {fn: stem for stem, fns in SIGNATURES.items() for fn in fns}
 

@@ -6,17 +6,20 @@ cols]`` operands of one shape, int8 or int32 (int32 for
 ``mws_bitwise``; an int32 ``[rows, words]`` stack and ``[wpr]`` query
 for ``search_pages``; int8 ``[M, K]`` and ``[K, N]`` for ``int8_matmul``;
 fp32 or bf16 ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with dh 16, 32, 64
-or 128 for ``flash_attention``.  Any rows and cols, any Sq and Sk — there
-is no tiling to pad to.
+or 128 for ``flash_attention``; fp32 ``dt, u [B, S, di]``, ``B, C [B, S,
+N]``, ``a [di]`` and ``h0 [B, di, N]`` for ``selective_scan``.  Any rows
+and cols, any Sq and Sk, any S and di — there is no tiling to pad to.
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor is
-computed by the kernel's plain PyTorch version (:mod:`.ref`); a CUDA
-tensor goes to the hand-written CUDA kernel, which raises if it cannot
-launch.  There is no fall-back from one to the other.
+computed by the kernel's plain PyTorch version (:mod:`.ref`; the scan's
+in :mod:`.scan`); a CUDA tensor goes to the hand-written CUDA kernel,
+which raises if it cannot launch.  There is no fall-back from one to the
+other.  ``selective_scan`` has no counterpart in the JAX package's
+``ops``: there the scan is ``jax.lax.scan``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import math
 
@@ -27,6 +30,7 @@ from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import int8_matmul as _int8_matmul
 from repro_torch.kernels import mws as _mws
 from repro_torch.kernels import ref
+from repro_torch.kernels import scan as _scan
 from repro_torch.kernels import search as _search
 from repro_torch.kernels import shift_add as _shift_add
 
@@ -163,6 +167,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention_plain(q, k, v, causal, scale)
 
 
+def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's selective scan over every step: ``h = h exp(dt a) + (dt u)
+    B`` and ``y = sum_n h C`` a step, from ``h0``; returns ``(y [B, S,
+    di], h [B, di, N])``, all fp32.
+
+    Forward only, as K6: a call that autograd would record raises
+    ``RuntimeError`` on every device.  Training scans through the loop of
+    ``models/ssm.py``."""
+    operands = (dt, u, bmat, cmat, a, h0)
+    if dt.ndim != 3 or u.shape != dt.shape or bmat.ndim != 3 or \
+            cmat.shape != bmat.shape or bmat.shape[:2] != dt.shape[:2] or \
+            a.shape != dt.shape[2:] or \
+            h0.shape != (dt.shape[0], dt.shape[2], bmat.shape[2]):
+        raise ValueError(f"selective_scan: expected dt, u [B, S, di], B, C "
+                         f"[B, S, N], a [di], h0 [B, di, N], got "
+                         f"{[tuple(t.shape) for t in operands]}")
+    if min(dt.shape) < 1 or bmat.shape[2] < 1:
+        raise ValueError(f"selective_scan: empty operand, dt "
+                         f"{tuple(dt.shape)}, B {tuple(bmat.shape)}")
+    if any(t.dtype != torch.float32 for t in operands):
+        raise TypeError(f"selective_scan: expected float32, got "
+                        f"{[t.dtype for t in operands]}")
+    if len({t.device for t in operands}) != 1:
+        raise ValueError(f"selective_scan: operands on "
+                         f"{[str(t.device) for t in operands]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            "selective_scan: the kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad, and "
+            "train through the loop of models/ssm.py mamba_apply")
+    if dt.is_cuda:
+        return _scan.selective_scan(*operands)
+    return _scan.selective_scan_plain(*operands)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"bitserial_add": _bitserial.ADD_LAUNCHES,
@@ -171,7 +212,8 @@ def launch_counts() -> Dict[str, int]:
             "mws_bitwise": _mws.LAUNCHES,
             "search_pages": _search.LAUNCHES,
             "int8_matmul": _int8_matmul.LAUNCHES,
-            "flash_attention": _attention.LAUNCHES}
+            "flash_attention": _attention.LAUNCHES,
+            "selective_scan": _scan.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -182,3 +224,4 @@ def reset_launch_counts() -> None:
     _search.LAUNCHES = 0
     _int8_matmul.LAUNCHES = 0
     _attention.LAUNCHES = 0
+    _scan.LAUNCHES = 0

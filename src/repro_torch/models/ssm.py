@@ -6,13 +6,21 @@ state instead of attending over a cache.  Mamba2's selective state-space
 recurrence with input-dependent (Δ, B, C) and a short causal conv; xLSTM's
 exponentially-gated scalar (sLSTM) and matrix (mLSTM) memories per head.
 
-Each time scan (the reference's ``jax.lax.scan``) is a Python loop over
-the sequence in fp32, with the reference's order of operations; a step is
-a handful of small launches on the card.  Each loop is one ``ssm.scan``
-span of :mod:`repro_torch.spans`, its steps counted once a scan
-(``ssm.scan_steps``), never inside the loop's body.  ``softplus`` is
-``logaddexp(x, 0)``, as ``jax.nn.softplus`` (``torch.nn.functional
-.softplus`` switches to ``x`` above a threshold).
+Each time scan (the reference's ``jax.lax.scan``) runs in fp32 with the
+reference's order of operations.  Mamba2's goes through
+``ops.selective_scan`` where autograd records nothing (serving): on the
+card one launch of a hand-written kernel computes every step, on the CPU
+its plain version (``kernels/scan.py``) loops.  Where autograd records,
+under a ``scan_steps`` limit and on DTensors Mamba2 scans through that
+plain version directly; there, and in both xLSTM blocks, the scan is a
+Python loop over the sequence, a step a handful of small launches on the
+card.  Each
+scan is one ``ssm.scan`` span of :mod:`repro_torch.spans`, its steps
+counted once a scan (``ssm.scan_steps``; those through
+``ops.selective_scan`` also as ``ssm.scan_kernel_steps``), never inside
+the loop's body.  ``softplus`` is ``logaddexp(x, 0)``, as
+``jax.nn.softplus`` (``torch.nn.functional.softplus`` switches to ``x``
+above a threshold).
 """
 from __future__ import annotations
 
@@ -22,8 +30,11 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import spans
+from repro_torch.kernels import ops
+from repro_torch.kernels.scan import selective_scan_plain
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, _maybe_shard, data_axes,
                                        dense_init, merge_heads, rmsnorm,
@@ -104,6 +115,18 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
     return out, new_state
 
 
+def _whole_scan(operands) -> bool:
+    """Whether a Mamba2 scan goes through ``ops.selective_scan`` (on the
+    card, one launch for every step): autograd records nothing, no
+    ``scan_steps`` limit holds, and the operands are plain tensors, not
+    DTensors.  Else its plain version's loop: training, the dry-run's
+    shortened scans and the sharded plan."""
+    return (_SCAN_STEPS["limit"] is None
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in operands))
+            and not any(isinstance(t, DTensor) for t in operands))
+
+
 def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 state: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -128,17 +151,18 @@ def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     h = (state["h"] if state else
          x.new_zeros((b, di, n), dtype=torch.float32))
     u32 = shard_tokens(u.float())
-    ys = []
+    operands = (dt, u32, bmat, cmat, a, h)
+    whole = _whole_scan(operands)
     steps = _steps(s)
     with spans.span("ssm.scan"):
-        for t in range(steps):
-            dt_t = dt[:, t]
-            decay = torch.exp(dt_t * a)                       # [B,di]
-            h = h * decay[..., None] + (dt_t * u32[:, t])[..., None] * \
-                bmat[:, t, None, :]
-            ys.append((h * cmat[:, t, None, :]).sum(-1))      # [B,di]
+        if whole:
+            y32, h = ops.selective_scan(*operands)
+        else:
+            y32, h = selective_scan_plain(*operands, steps=steps)
     spans.count("ssm.scan_steps", steps)
-    y = _stack_steps(ys, s).to(x.dtype)                       # [B,S,di]
+    if whole:
+        spans.count("ssm.scan_kernel_steps", steps)
+    y = y32.to(x.dtype)                                       # [B,S,di]
     y = y + u * p["d_skip"]
     y = y * F.silu(z)
     out = y @ p["w_out"]

@@ -328,6 +328,52 @@ def test_k6_calls_of_the_full_configs_are_the_table():
     assert set(chip_smoke.FAMILIES_K6) == set(chip_smoke.FAMILY_ARCHS)
 
 
+def test_scan_calls_of_the_families_are_the_table():
+    """The selective-scan launches phase 10 holds the card to, and the
+    configs' count of them, without building a model."""
+    s = chip_smoke.FAMILIES_FULL
+    for arch, (pinned, full) in chip_smoke.FAMILIES_SCAN.items():
+        cfg = chip_smoke.family_config(arch)
+        assert chip_smoke.pinned_scan_calls(cfg, arch) == pinned, arch
+        cfg = chip_smoke.family_config(arch, full=True)
+        assert (chip_smoke.scan_calls(cfg, 2, s["max_new"])
+                + chip_smoke.scan_calls(cfg, 1, 1)) == full, arch
+    assert set(chip_smoke.FAMILIES_SCAN) == set(chip_smoke.FAMILY_ARCHS)
+    assert chip_smoke.FAMILIES_SCAN["zamba2-1.2b"] == (48, 646)
+
+
+@pytest.mark.parametrize("run", ["pinned", "full"])
+def test_scan_calls_count_the_kernel_path_on_the_cpu(run, monkeypatch):
+    """zamba2's phase 10 runs at the reduced size: the calls that take
+    ``ops.selective_scan`` (a launch each on the card) are the count
+    phase 10 holds the card's launches to."""
+    calls = []
+    kernel = ops.selective_scan
+
+    def counted(*operands):
+        calls.append(operands[0].shape)
+        return kernel(*operands)
+
+    monkeypatch.setattr(ops, "selective_scan", counted)
+    arch = "zamba2-1.2b"
+    cfg = chip_smoke.family_config(arch)
+    if run == "pinned":
+        chip_smoke.families_pinned(arch, "cpu")
+        want = chip_smoke.pinned_scan_calls(cfg, arch)
+        assert want == chip_smoke.FAMILIES_SCAN[arch][0]
+    else:
+        params = chip_smoke.M.init_params(cfg,
+                                          torch.Generator().manual_seed(0))
+        sizes = dict(chip_smoke.FAMILIES_FULL, batch=2, prompt_len=32)
+        res = chip_smoke.families_full(arch, "cpu", sizes,
+                                       model=(cfg, params))
+        want = res["scan_calls"]
+        assert want == 6 * (2 * sizes["max_new"] + 1)
+    assert len(calls) == want
+    assert sorted({shape[1] for shape in calls}) == (
+        [1, 8] if run == "pinned" else [1, 32])
+
+
 def test_attention_pairs_under_each_mask():
     assert chip_smoke.attn_pairs(1024, 1024, True) == 1024 * 1025 // 2
     assert chip_smoke.attn_pairs(1, 256, True) == 1

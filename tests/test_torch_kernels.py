@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (_build, attention, bitserial,  # noqa: E402
-                                 int8_matmul, mws, ops, ref, search,
+                                 int8_matmul, mws, ops, ref, scan, search,
                                  shift_add)
 
 # the grids of tests/test_kernels.py
@@ -422,6 +422,16 @@ def test_search_on_cpu_takes_any_rows_and_launches_nothing(wpr):
     assert ops.launch_counts() == before
 
 
+def _scan_shapes(b=2, s=5, di=32, n=16, n_b=None, a_len=None, h_n=None,
+                 dtype=torch.float32):
+    """Zero ``selective_scan`` operands: dt, u [b, s, di], B, C [b, n_b or
+    s, n], a [a_len or di], h0 [b, di, h_n or n]."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype)
+    return (z(b, s, di), z(b, s, di), z(b, n_b or s, n), z(b, n_b or s, n),
+            z(a_len or di), z(b, di, h_n or n))
+
+
 @pytest.mark.parametrize("call", [
     lambda: ops.bitserial_add(torch.zeros(8, dtype=torch.int32),
                               torch.zeros(8, dtype=torch.int32)),
@@ -471,13 +481,19 @@ def test_search_on_cpu_takes_any_rows_and_launches_nothing(wpr):
                                 torch.zeros(2, 8, 16)),
     lambda: ops.flash_attention(torch.zeros(2, 8, 16), torch.zeros(2, 0, 16),
                                 torch.zeros(2, 0, 16)),
+    lambda: ops.selective_scan(*_scan_shapes(n_b=8)),
+    lambda: ops.selective_scan(*_scan_shapes(a_len=31)),
+    lambda: ops.selective_scan(*_scan_shapes(h_n=8)),
+    lambda: ops.selective_scan(*_scan_shapes(s=0)),
+    lambda: ops.selective_scan(*_scan_shapes(dtype=torch.float64)),
 ], ids=["1d", "shapes", "float", "mixed_dtypes", "shift_add_int8",
         "mws_2d", "mws_float", "mws_int16", "mws_op", "search_ragged",
         "search_int8", "search_query_2d", "search_empty_query",
         "matmul_inner_dims", "matmul_1d", "matmul_int32", "matmul_uint8",
         "matmul_empty", "attn_dh48", "attn_fp16", "attn_mixed_dtypes",
         "attn_kv_shapes", "attn_heads", "attn_4d", "attn_empty_q",
-        "attn_empty_k"])
+        "attn_empty_k", "scan_bc_steps", "scan_a", "scan_h0", "scan_empty",
+        "scan_float64"])
 def test_ops_reject_what_the_contract_excludes(call):
     with pytest.raises((ValueError, TypeError)):
         call()
@@ -493,8 +509,9 @@ def test_ops_reject_what_the_contract_excludes(call):
                                       a.to(torch.int8).T.contiguous()),
     lambda a: attention.flash_attention(*[a.float().reshape(2, 32, 16)] * 3,
                                         causal=True, scale=0.25),
+    lambda a: scan.selective_scan(*_scan_shapes()),
 ], ids=["bitserial_add", "bitserial_mul", "shift_add_mul", "mws_bitwise",
-        "search_pages", "int8_matmul", "flash_attention"])
+        "search_pages", "int8_matmul", "flash_attention", "selective_scan"])
 def test_kernel_wrappers_never_fall_back_to_the_cpu(launch):
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
@@ -574,7 +591,8 @@ def test_cuda_kernels_equal_their_plain_versions():
                                    "shift_add_mul": len(SHIFT_GRID),
                                    "mws_bitwise": len(MWS_GRID),
                                    "search_pages": len(SEARCH_GRID),
-                                   "int8_matmul": 0, "flash_attention": 0}
+                                   "int8_matmul": 0, "flash_attention": 0,
+                                   "selective_scan": 0}
 
 
 @pytest.mark.cuda
@@ -993,3 +1011,120 @@ def test_cuda_flash_attention_equals_its_plain_version():
                                            atol=tol, rtol=tol)
                 n += 1
     assert ops.launch_counts()["flash_attention"] == n
+
+
+# -- the selective scan -------------------------------------------------------
+# (B, S, di, N): zamba2's serving prefill, then a ragged di (not a multiple
+# of a block's 128 channels) and S (not of a tile's 8 steps) at the smallest
+# N the configs use (the reduced zamba2's 16), and N 32
+SCAN_SERVE = (32, 1020, 4096, 64)
+SCAN_RAGGED = [(3, 37, 200, 16), (2, 9, 130, 32)]
+# The kernel's h update is one fma a state (h * decay unrounded) where the
+# plain version rounds the two products and their sum, and it sums y over n
+# in four interleaved partial sums, not in PyTorch's order: roundings of
+# fp32 (2^-24 relative) that a decay under 1 keeps from growing over the
+# steps.  Each output within SCAN_TOL of its tensor's largest magnitude.
+SCAN_TOL = 1e-4
+
+
+def _scan_operands(b, s, di, n, seed):
+    """Operands on the card as ``mamba_apply`` makes them: dt a softplus,
+    a = -exp(a_log) by channel, B and C views of one [b, s, 2n]
+    projection."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(randn(b, s, di) - 1.0)
+    u = randn(b, s, di)
+    bc = randn(b, s, 2 * n) * n ** -0.5
+    a = -torch.exp(0.5 * randn(di))
+    return dt, u, bc[..., :n], bc[..., n:], a, randn(b, di, n) * 0.1
+
+
+def _scan_close(got, want, what):
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= SCAN_TOL * scale, (what, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_equals_its_plain_version():
+    """The kernel against its plain version at zamba2's serving shape,
+    then one step (S = 1, a decode step) continuing the state it left;
+    then ragged di and S at N 16 and 32, with a misaligned h0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/scan.cu: not found")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        b, s, di, n = SCAN_SERVE
+        operands = _scan_operands(b, s, di, n, seed=0)
+        assert operands[2].stride(1) == 2 * n       # B read in place
+        y, h = ops.selective_scan(*operands)
+        want_y, want_h = scan.selective_scan_plain(*operands)
+        torch.cuda.synchronize()
+        _scan_close(y, want_y, "y serve")
+        _scan_close(h, want_h, "h serve")
+        step = _scan_operands(b, 1, di, n, seed=1)[:5] + (h,)
+        y1, h1 = ops.selective_scan(*step)
+        want_y1, want_h1 = scan.selective_scan_plain(*step)
+        torch.cuda.synchronize()
+        _scan_close(y1, want_y1, "y step")
+        _scan_close(h1, want_h1, "h step")
+        del operands, y, h, want_y, want_h
+        for case in SCAN_RAGGED:
+            b, s, di, n = case
+            *rest, h0 = _scan_operands(b, s, di, n, seed=di)
+            off = torch.empty(h0.numel() + 1, device="cuda")[1:]
+            off.copy_(h0.reshape(-1))
+            operands = (*rest, off.view(h0.shape))
+            assert operands[5].data_ptr() % 16
+            y, h = ops.selective_scan(*operands)
+            want_y, want_h = scan.selective_scan_plain(*operands)
+            torch.cuda.synchronize()
+            _scan_close(y, want_y, ("y", case))
+            _scan_close(h, want_h, ("h", case))
+    assert ops.launch_counts()["selective_scan"] == 2 + len(SCAN_RAGGED)
+
+
+@pytest.mark.cuda
+def test_cuda_zamba2_serves_the_loops_tokens():
+    """The reduced zamba2 over ``mamba, mamba, sattn, mamba`` in fp32 on
+    the card: prefill and decode through the scan kernel give the greedy
+    tokens of the same no-grad run through the loop (``scan_steps``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/scan.cu: not found")
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+    pattern = ("mamba", "mamba", "sattn", "mamba")
+    cfg = dataclasses.replace(configs.get("zamba2-1.2b").reduced(),
+                              dtype="float32", block_pattern=pattern,
+                              n_layers=len(pattern))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen)
+    n_req, batch, prompt, max_new = 4, 2, 32, 8
+
+    def tokens():
+        requests = serve.make_requests(cfg, n_req, prompt, max_new, seed=1)
+        done = serve.serve_requests(cfg, params, requests, batch, prompt,
+                                    max_new, "cuda")
+        return [r.generated for r in done]
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        kernel = tokens()
+        launched = ops.launch_counts()["selective_scan"]
+        with S.scan_steps(10 ** 6):
+            loop = tokens()
+    assert launched == pattern.count("mamba") * max_new * n_req // batch
+    assert ops.launch_counts()["selective_scan"] == launched
+    assert kernel == loop

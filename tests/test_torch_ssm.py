@@ -7,6 +7,11 @@ Beyond the whole-model checks of ``_family_checks``: ``softplus``, the
 causal conv, each block continuing a recurrent state, the zero gradient
 of a shared block the loss never reaches, and the xlstm training
 restart of ``tests/test_train_integration.py`` under ``run_elastic``.
+Then Mamba2's scan through ``ops.selective_scan`` (its plain version on
+the CPU) against the training path and the JAX package, a shortened scan,
+and which calls take which path (the ``ssm.scan_kernel_steps``
+counter); the kernel itself is held to the plain version on the card in
+``tests/test_torch_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -17,7 +22,10 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 from _family_checks import (CHECKS, _batch_t, check_cache_law,  # noqa: E402
-                            close, jax_loss_and_grads, pair)
+                            close, jax_loss_and_grads, pair, port_config)
+from repro_torch import spans  # noqa: E402
+from repro_torch.kernels import ops, scan  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro.models import ssm as RS  # noqa: E402
 from repro_torch.launch.elastic import run_elastic  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
@@ -169,3 +177,160 @@ def test_xlstm_restart_under_run_elastic_is_bit_equal(tmp_path, capsys):
     for a, b in zip(pytree.tree_leaves(straight["state"]),
                     pytree.tree_leaves(resumed["state"])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# -- the scan through ops.selective_scan --------------------------------------
+
+def _scan_inputs(s: int, seed: int = 0):
+    """The reduced zamba2's first Mamba2 block (the JAX init, as numpy),
+    its decay drawn to differ by channel, an input of ``s`` steps and a
+    non-zero state."""
+    pr = pair("zamba2-1.2b")
+    _, p_j, p_t = _block("zamba2-1.2b", "mamba")
+    cfg = pr.cfg_t
+    di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    rng = np.random.default_rng(seed + s)
+    a_log = (rng.normal(size=(di,)) * 0.5).astype(np.float32)
+    p_j = dict(p_j, a_log=jnp.asarray(a_log))
+    p_t = dict(p_t, a_log=torch.from_numpy(a_log))
+    x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
+    state = {"h": rng.normal(size=(2, di, n)).astype(np.float32),
+             "conv": rng.normal(size=(2, cfg.conv_kernel - 1, di))
+             .astype(np.float32)}
+    return pr, p_j, p_t, x, state
+
+
+@pytest.mark.parametrize("s", [1, 7, 64])
+def test_plain_selective_scan_equals_the_loop_bit_for_bit(s):
+    """From one non-zero state, a no-grad block call (serving:
+    ``ops.selective_scan``, its plain version on the CPU) and the same
+    call with autograd recording (training: the loop of
+    ``selective_scan_plain`` called directly) give outputs and states
+    equal to the bit, nothing launched; both within 1e-5 of the JAX
+    package's ``jax.lax.scan``."""
+    pr, p_j, p_t, x, state = _scan_inputs(s)
+    state_t = {k: torch.from_numpy(v) for k, v in state.items()}
+    before = ops.launch_counts()
+    with torch.no_grad():
+        got, got_state = S.mamba_apply(p_t, pr.cfg_t, torch.from_numpy(x),
+                                       state_t)
+    p_grad = {k: v.clone().requires_grad_() for k, v in p_t.items()}
+    with spans.recording() as rec:
+        want, want_state = S.mamba_apply(p_grad, pr.cfg_t,
+                                         torch.from_numpy(x), state_t)
+    assert want.requires_grad
+    assert [c["name"] for c in rec.counters()] == ["ssm.scan_steps"]
+    assert ops.launch_counts() == before
+    assert torch.equal(got, want.detach())
+    assert set(got_state) == set(want_state) == {"h", "conv"}
+    for key in got_state:
+        assert torch.equal(got_state[key], want_state[key].detach()), key
+    ref, ref_state = jax.jit(RS.mamba_apply, static_argnums=1)(
+        p_j, pr.cfg_j, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in state.items()})
+    close(got, ref, 1e-5)
+    for key in got_state:
+        close(got_state[key], ref_state[key], 1e-5)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_a_scan_limit_repeats_the_last_output(steps):
+    """``selective_scan_plain(..., steps=k)`` (the dry-run's shortened
+    scans): the first k outputs and the state those k steps leave equal
+    to the bit the scan of just those steps, each later output the k-th
+    one."""
+    rng = np.random.default_rng(steps)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    dt, u, bmat, cmat = t(2, 9, 32).abs(), t(2, 9, 32), t(2, 9, 16), \
+        t(2, 9, 16)
+    a, h0 = -t(32).exp(), t(2, 32, 16)
+    y, h = scan.selective_scan_plain(dt, u, bmat, cmat, a, h0, steps=steps)
+    y_k, h_k = scan.selective_scan_plain(
+        dt[:, :steps], u[:, :steps], bmat[:, :steps], cmat[:, :steps], a, h0)
+    assert y.shape == (2, 9, 32) and torch.equal(h, h_k)
+    assert torch.equal(y[:, :steps], y_k)
+    assert torch.equal(y[:, steps:],
+                       y_k[:, -1:].expand(2, 9 - steps, 32))
+
+
+def test_selective_scan_refuses_autograd():
+    """Forward only, as K6: a call autograd would record raises on every
+    device; the same operands under ``no_grad`` pass."""
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    dt, u, bmat, cmat, a, h0 = (t(2, 5, 32), t(2, 5, 32), t(2, 5, 16),
+                                t(2, 5, 16), t(32), t(2, 32, 16))
+    a.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.selective_scan(dt, u, bmat, cmat, a, h0)
+    with torch.no_grad():
+        y, h = ops.selective_scan(dt, u, bmat, cmat, a, h0)
+    assert y.shape == (2, 5, 32) and h.shape == (2, 32, 16)
+
+
+def _hybrid(dtype="float32"):
+    """The reduced zamba2 over ``mamba, mamba, sattn, mamba``, torch
+    init."""
+    cfg = port_config("zamba2-1.2b", dtype=dtype,
+                      pattern=("mamba", "mamba", "sattn", "mamba"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return cfg, M.init_params(cfg, gen)
+
+
+def _served_counts(cfg, params):
+    """Each ``serve.prefill`` and ``serve.decode_step`` span's counters
+    of a no-grad serving run of 2 requests, 6 prompt tokens, 4 new."""
+    requests = serve.make_requests(cfg, 2, 6, 4, seed=1)
+    with spans.recording() as rec, torch.no_grad():
+        serve.serve_requests(cfg, params, requests, 2, 6, 4, "cpu")
+    names = {s["id"]: s["name"] for s in rec.spans()}
+    out = {"serve.prefill": [], "serve.decode_step": []}
+    counts = {sid: {} for sid, name in names.items() if name in out}
+    for c in rec.counters():
+        if c["span"] in counts:
+            counts[c["span"]][c["name"]] = c["value"]
+    for sid in sorted(counts):
+        out[names[sid]].append(counts[sid])
+    return out
+
+
+def test_a_no_grad_forward_scans_through_the_kernel_path():
+    """Serving under ``no_grad``: every step of every Mamba2 scan, in
+    prefill and in each decode step, goes through ``ops.selective_scan``
+    (``ssm.scan_kernel_steps`` equals ``ssm.scan_steps``)."""
+    cfg, params = _hybrid()
+    counts = _served_counts(cfg, params)
+    n_mamba = cfg.pattern.count("mamba")
+    assert [c["ssm.scan_steps"] for c in counts["serve.prefill"]] == \
+        [n_mamba * 6]
+    assert [c["ssm.scan_steps"] for c in counts["serve.decode_step"]] == \
+        [n_mamba] * 3
+    for c in counts["serve.prefill"] + counts["serve.decode_step"]:
+        assert c["ssm.scan_kernel_steps"] == c["ssm.scan_steps"]
+
+
+def test_training_and_a_scan_limit_keep_the_loop():
+    """A training step (autograd records) and a no-grad run under
+    ``scan_steps`` scan through the loop: ``ssm.scan_kernel_steps`` is
+    never counted, ``ssm.scan_steps`` is."""
+    cfg, params = _hybrid()
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+             for k in ("tokens", "labels")}
+    with spans.recording() as rec:
+        loss, grads = loss_and_grads(cfg, params, batch)
+    totals = {}
+    for c in rec.counters():
+        totals[c["name"]] = totals.get(c["name"], 0) + c["value"]
+    assert totals == {"ssm.scan_steps": cfg.pattern.count("mamba") * 8}
+    assert bool(torch.isfinite(loss))
+    with S.scan_steps(10 ** 6):
+        counts = _served_counts(cfg, params)
+    for c in counts["serve.prefill"] + counts["serve.decode_step"]:
+        assert c["ssm.scan_steps"] > 0
+        assert "ssm.scan_kernel_steps" not in c
