@@ -64,6 +64,7 @@ class Serving:
         self.serve = program_serve
         self.arch = config["arch"]
         self.init = config.get("init")
+        self.layout = spec.layout(config)
         self.cfg = program_config(config)
         self.t = traffic
         self.seed = seed
@@ -72,7 +73,8 @@ class Serving:
         data = SyntheticLM(self.arch["vocab"], p, b, seed, traffic["zipf_a"])
         self.pool = [data.batch(r)["tokens"]
                      for r in range(traffic["pool_rounds"])]
-        self.params = weights.make(self.arch, seed, device, self.init)
+        self.params = weights.make(self.arch, seed, device, self.init,
+                                   self.layout)
 
     def round(self, r: int) -> Dict:
         b, p, n = (self.t["clients"], self.t["prompt_len"],
@@ -143,7 +145,7 @@ class Serving:
         reduced.update(
             rounds=n, prompt_tokens=n * b * p,
             decode_steps=n * (self.t["max_new"] - 1),
-            k6_bound_s=n * counts.k6_calls_per_prefill(self.arch)
+            k6_bound_s=n * self.layout.k6_calls_per_prefill(self.arch)
             * call["bound_s"], k6_by=call["by"])
         return reduced
 
@@ -232,7 +234,7 @@ def serve_cell(config: dict, traffic: dict, limits: dict, seed: int,
                           "t_first": rnd["requests"][0].t_first,
                           "t_done": max(r.t_done for r in rnd["requests"]),
                           "prompt_tokens": b * p, "decode_steps": n - 1,
-                          "prefill_flops": counts.prefill_flops(
+                          "prefill_flops": run.layout.prefill_flops(
                               run.arch, b, p)}
                          for rnd in rounds]}
     traced_segment = run.traced_rounds(len(rounds)) if traced else None
@@ -240,7 +242,8 @@ def serve_cell(config: dict, traffic: dict, limits: dict, seed: int,
     judged = run.judged(rounds)
     run.close()
     ref = spec.reference(config)
-    params = weights.make(config["arch"], seed, device, config.get("init"))
+    params = weights.make(config["arch"], seed, device, config.get("init"),
+                          run.layout)
     gaps, _ = served_gaps(ref, params, judged, config["arch"],
                           traffic["check_batch"], device)
     del params

@@ -7,6 +7,11 @@ the tensor cores, 67 TFLOP/s fp32 on the CUDA cores (TF32 off), HBM3 at
 3.35 TB/s, all at the 700 W power limit.  A run prints the card's
 ``power.limit`` beside them.
 
+The peaks, :func:`k6_call` and :func:`causal_attention_flops` are the
+yardstick every family shares; the rest counts the dense, Mamba2 and
+shared-block family (``layouts/lm.py``), and another family counts its
+own in its layout module.
+
 Model flops count each weight a token is multiplied by (every block as
 the pattern applies it, a shared block at each application, the LM head;
 the embedding lookup is no product), the causal attention products (q·k

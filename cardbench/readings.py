@@ -49,7 +49,8 @@ def serve_readings(config, traffic, seed, control, device):
     failed = [i for rnd in rounds for i in run.failed(rnd)]
     judged = run.judged(rounds)
     run.close()
-    params = weights.make(config["arch"], seed, device, config.get("init"))
+    params = weights.make(config["arch"], seed, device, config.get("init"),
+                          run.layout)
     gaps, cgaps = cells.served_gaps(
         spec.reference(config), params, judged, config["arch"],
         traffic["check_batch"], device,

@@ -2,8 +2,11 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix; each is a JSON file under this folder, and each per-layer metric is
-a reader ``metrics/<name>.py`` with a function ``read(ctx)``.  Adding a
-configuration, a mix or a metric is adding its file and its entry.
+a reader ``metrics/<name>.py`` with a function ``read(ctx)``.  A
+configuration names its parameter layout and model-flop count, a module
+``layouts/<name>.py``, and its plain reference ``reference/<name>.py``.
+Adding a configuration, a mix or a metric is adding its files and its
+entry.
 """
 from __future__ import annotations
 
@@ -60,6 +63,16 @@ def load_module(path: pathlib.Path, name: str) -> ModuleType:
 def reader(name: str, here: pathlib.Path = HERE) -> ModuleType:
     return load_module(here / "metrics" / f"{name}.py",
                        f"cardbench_metric_{name.replace('.', '_')}")
+
+
+def layout(config: dict, here: pathlib.Path = HERE) -> ModuleType:
+    """The module ``layouts/<name>.py`` a configuration's ``layout`` key
+    names (``lm`` without one): its parameter tree, ``layout(arch, init)``
+    of ``(init, shape)`` leaves, and its counts, ``prefill_flops(arch,
+    batch, seq)`` and ``k6_calls_per_prefill(arch)``."""
+    name = config.get("layout", "lm")
+    return load_module(here / "layouts" / f"{name}.py",
+                       f"cardbench_layout_{name.replace('.', '_')}")
 
 
 def reference(config: dict) -> ModuleType:

@@ -7,6 +7,7 @@ The tests marked ``cuda`` need the card and skip elsewhere; on the card:
 """
 import ast
 import copy
+import hashlib
 import json
 import math
 import pathlib
@@ -100,6 +101,9 @@ def test_every_named_file_is_found():
         config = spec.read_json(ROOT / entry["file"])
         assert config["name"] == entry["name"]
         assert spec.reference(config).position_logits
+        family = spec.layout(config)
+        assert all(callable(getattr(family, f)) for f in (
+            "layout", "prefill_flops", "k6_calls_per_prefill"))
         for key in entry["reduced"]:
             assert not key.endswith(("_dim", "_rank", "_size"))
     for cell in BENCH["workloads"]:
@@ -135,6 +139,154 @@ def test_a_mix_and_a_metric_are_added_by_files_alone(tmp_path):
     reader = spec.reader("rounds_run", here=tmp_path)
     assert reader.read({"window": result["window"]}) >= 1
     assert result["failed"] == 0 and result["attempted"] % 3 == 0
+
+
+def test_a_configuration_is_added_by_files_alone(tmp_path, monkeypatch):
+    """A configuration file that names a layout module of its own, both in
+    a folder of their own, gets its weights and its model flops from that
+    module through ``serve_cell``, without an edit to any harness file."""
+    (tmp_path / "layouts").mkdir()
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "layouts" / "halved-emb.py").write_text(
+        "from cardbench import spec\n"
+        "lm = spec.layout({}, spec.HERE)\n"
+        "k6_calls_per_prefill = lm.k6_calls_per_prefill\n\n"
+        "def layout(arch, init=None):\n"
+        "    tree = lm.layout(arch, init)\n"
+        "    tree['emb'] = (0.5, tree['emb'][1])\n"
+        "    return tree\n\n"
+        "def prefill_flops(arch, batch, seq):\n"
+        "    return 7 * batch * seq\n")
+    config = copy.deepcopy(spec.config_of(BENCH, {"config": "stablelm-1.6b"}))
+    config.update(name="x", layout="halved-emb")
+    config["arch"] = small_arch(config["arch"])
+    (tmp_path / "configs" / "x.json").write_text(json.dumps(config))
+    bench = {"configs": [{"name": "x", "file": "configs/x.json"}]}
+    config = spec.config_of(bench, {"config": "x"}, root=tmp_path)
+    real_layout, real_make = spec.layout, weights.make
+    monkeypatch.setattr(spec, "layout",
+                        lambda config, here=tmp_path: real_layout(config,
+                                                                  here))
+    made = []
+    monkeypatch.setattr(weights, "make", lambda *a, **k: made.append(
+        real_make(*a, **k)) or made[-1])
+    cell, _, traffic, limits = small("stablelm-1.6b.serve-code")
+    seed = 2 ** 31 + 5
+    result = cells.serve_cell(config, traffic, limits, seed, 0.2, False,
+                              "cpu", 0.0)
+    assert result["failed"] == 0 and result["attempted"] > 0
+    b, p = traffic["clients"], traffic["prompt_len"]
+    assert [r["prefill_flops"] for r in result["window"]["rounds"]] == \
+        [7 * b * p] * len(result["window"]["rounds"])
+    mine = real_make(config["arch"], seed, "cpu", None,
+                     real_layout(config, tmp_path))
+    lm = real_make(config["arch"], seed, "cpu")
+    assert len(made) == 2          # the program's and the reference's
+    for tree in made:
+        for (path, got), want, other in zip(weights.items(tree),
+                                            weights.leaves(mine),
+                                            weights.leaves(lm)):
+            assert torch.equal(got, want), path
+            assert torch.equal(got, other) == (path != "emb"), path
+    assert made[0]["emb"].float().std() == pytest.approx(0.5, rel=0.05)
+    chk = result["checks"]["served_gap"]
+    assert chk["value"] <= chk["limit"]
+
+
+def test_a_stacked_leaf_is_drawn_at_its_input_width(tmp_path):
+    """A ``fan_in`` leaf ``[E, d_in, d_out]`` takes 1/sqrt(d_in), not
+    1/sqrt(E), from the same flat draw in tree order."""
+    (tmp_path / "layouts").mkdir()
+    for name, init in (("experts", '"fan_in"'), ("experts-raw", "1.0")):
+        (tmp_path / "layouts" / f"{name}.py").write_text(
+            "from cardbench import spec\n"
+            "lm = spec.layout({}, spec.HERE)\n"
+            "prefill_flops = lm.prefill_flops\n"
+            "k6_calls_per_prefill = lm.k6_calls_per_prefill\n\n"
+            "def layout(arch, init=None):\n"
+            "    tree = lm.layout(arch, init)\n"
+            f"    tree['experts'] = ({init}, (4, 48, 96))\n"
+            "    return tree\n")
+    arch = dict(small_arch(spec.config_of(BENCH, {"config": "stablelm-1.6b"})
+                           ["arch"]), dtype="float32")
+    scaled, raw = (weights.make(arch, 3, "cpu", None,
+                                spec.layout({"layout": name}, tmp_path))
+                   for name in ("experts", "experts-raw"))
+    assert torch.equal(scaled["experts"],
+                       raw["experts"].mul(1.0 / math.sqrt(48)))
+    lm = weights.make(arch, 3, "cpu")
+    for (path, a), b in zip(weights.items(lm), weights.leaves(scaled)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_the_harness_tree_is_the_programs(name):
+    """The harness's parameter tree at a small size has the paths, shapes
+    and types of the program's own ``init_params``, leaf by leaf."""
+    from repro_torch.models.model import init_params
+    config = copy.deepcopy(spec.config_of(BENCH, {"config": name}))
+    config["arch"] = small_arch(config["arch"])
+    ours = weights.make(config["arch"], 3, "cpu", config.get("init"),
+                        spec.layout(config))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    theirs = init_params(cells.program_config(config), gen)
+    a = [(p, tuple(t.shape), t.dtype) for p, t in weights.items(ours)]
+    b = [(p, tuple(t.shape), t.dtype) for p, t in weights.items(theirs)]
+    first = next(((x, y) for x, y in zip(a, b) if x != y), None)
+    assert first is None, f"first leaf that differs: harness {first[0]}, " \
+        f"program {first[1]}"
+    assert len(a) == len(b), f"harness {len(a)} leaves, program {len(b)}"
+
+
+def layout_digest(tree) -> str:
+    """sha256 of the JSON list of (path, init, shape) in draw order."""
+    rows = [(path, leaf[0], list(leaf[1]))
+            for path, leaf in weights.items(tree)]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def weights_digest(tree) -> str:
+    """sha256 over each leaf's path, type and values (through fp32, which
+    holds a bf16 value exactly), in draw order."""
+    h = hashlib.sha256()
+    for path, t in weights.items(tree):
+        h.update(path.encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.float().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+# computed before the layout became the configuration's module: each
+# configuration's tree at published widths, and its weights at
+# ``small_arch`` from seed 1234567, with its ``init``
+PINNED = {
+    "zamba2-1.2b": (
+        315,
+        "78e239abc106b82c250790a40ed9517b18276854f3617e6b0529cae61351fff9",
+        "8957ff52f64c4a8fc7e799c1f9742e8a2ef0673b7faf6501905457d534252125"),
+    "stablelm-1.6b": (
+        219,
+        "f3f4337bab9095647261594d75358c7ed164901561f69b862e34c83a40ebaa3e",
+        "c77ec91db1905872a46fd9c52e65054b1099ddbc8e81a0564658c59c7c666e81"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_the_layout_and_the_draw_are_as_pinned(name):
+    config = spec.config_of(BENCH, {"config": name})
+    arch, init, family = config["arch"], config.get("init"), \
+        spec.layout(config)
+    n_leaves, layout_sha, weights_sha = PINNED[name]
+    tree = family.layout(arch, init)
+    assert len(weights.leaves(tree)) == n_leaves
+    assert layout_digest(tree) == layout_sha
+    assert layout_digest(weights.layout(arch, init)) == layout_sha
+    small = small_arch(arch)
+    assert weights_digest(weights.make(small, 1234567, "cpu", init,
+                                       family)) == weights_sha
+    assert weights_digest(weights.make(small, 1234567, "cpu",
+                                       init)) == weights_sha
 
 
 @pytest.mark.parametrize("name", ["stablelm-1.6b.serve-code",

@@ -4,18 +4,25 @@ entry of the pattern], ["shared_attn"]}``, a shared block's entry of
 ``layers`` empty), and the zero AdamW moments beside them.
 
 Every random leaf is a view of one normal draw in the working type from a
-``torch.Generator`` seeded with the seed, scaled in place: 1/sqrt(fan-in)
-for a projection, 0.02 for the embedding, 0.01 for Mamba2's Δ projection
-and 0.1 for its convolution; norm gains are ones, Mamba2's skip ones and
-its ``a_log`` fp32 zeros (A = -1).  A configuration's ``init`` may scale a
-projection's 1/sqrt(fan-in) by a factor, by block kind and leaf name
-(``{"mamba.w_bc": 0.25}``); its ``departures`` say why.  The same seed
-gives the same tensors, so the reference is handed them again after the
-window by calling :func:`make` once more.
+``torch.Generator`` seeded with the seed, in the tree's order, scaled in
+place: 1/sqrt(fan-in) for a projection (its input width ``shape[-2]``, so
+a stacked ``[E, d_in, d_out]`` leaf takes 1/sqrt(d_in)), 0.02 for the
+embedding, 0.01 for Mamba2's Δ projection and 0.1 for its convolution;
+norm gains are ones, Mamba2's skip ones and its ``a_log`` fp32 zeros
+(A = -1).  A configuration's ``init`` may scale a projection's
+1/sqrt(fan-in) by a factor, by block kind and leaf name
+(``{"mamba.w_bc": 0.25}``); its ``departures`` say why.
+
+:func:`layout` is the tree of the dense, Mamba2 and shared-block family
+(``layouts/lm.py``); a configuration with a ``layout`` key has its tree
+drawn from its own module's.  The same seed gives the same tensors, so the
+reference is handed them again after the window by calling :func:`make`
+once more.
 """
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import Any, Iterator, List, Optional, Tuple
 
 import torch
@@ -75,6 +82,9 @@ def layout(arch: dict, init: Optional[dict] = None) -> dict:
     return tree
 
 
+_lm_layout = layout   # ``make``'s argument ``layout`` shadows the name
+
+
 def items(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """``(path, leaf)`` in the tree's order (dicts in insertion order)."""
     if isinstance(tree, dict):
@@ -102,11 +112,14 @@ def tree_map(fn, tree: Tree) -> Tree:
 
 
 def make(arch: dict, seed: int, device: torch.device | str,
-         init: Optional[dict] = None) -> Tree:
+         init: Optional[dict] = None,
+         layout: Optional[ModuleType] = None) -> Tree:
     """The parameters of ``arch`` from ``seed`` on ``device``, with the
-    fan-in factors of a configuration's ``init``."""
+    fan-in factors of a configuration's ``init``, in the tree of the
+    ``layout`` module (:func:`cardbench.spec.layout`; ``lm``'s without
+    one)."""
     dtype = getattr(torch, arch["dtype"])
-    spec = layout(arch, init)
+    spec = (layout.layout if layout is not None else _lm_layout)(arch, init)
     random = [leaf for leaf in leaves(spec)
               if leaf[0] not in ("ones", "zeros_fp32")]
     total = sum(math.prod(shape) for _, shape in random)
@@ -126,7 +139,7 @@ def make(arch: dict, seed: int, device: torch.device | str,
         offset[0] += n
         if init == "fan_in":
             init = ("fan_in", 1.0)
-        scale = (init[1] / math.sqrt(shape[0]) if isinstance(init, tuple)
+        scale = (init[1] / math.sqrt(shape[-2]) if isinstance(init, tuple)
                  else init)
         return w.mul_(scale)
 
