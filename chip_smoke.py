@@ -340,7 +340,9 @@ FAMILIES_DEPTH = {"dbrx-132b": 4, "deepseek-v2-236b": 4}
 # [128, 1024, 64]; seamless 12 encoder [64, 256, 64] + 12 self [64, 1024,
 # 64] + 12 cross [64, 1024 -> 256, 64] in prefill, then the encoder again
 # for enc_out and 12 cross [64, 1 -> 256, 64] a step; dbrx 4 layers at
-# [192, 1024, 128]; none in xlstm (no attention) or deepseek (MLA); the
+# [192, 1024, 128]; deepseek 4 layers of MLA at [512, 1024, 192 -> 128]
+# (since K6 took MLA's widths; its decode steps take the absorbed form
+# and no kernel); none in xlstm (no attention); the
 # dense configs one a layer, at whole depth: qwen3-4b 36 and llama2-7b 32
 # at [128, 1024, 128], minicpm-2b 40 at [144, 1024, 64], stablelm-1.6b 24
 # at [128, 1024, 64]
@@ -353,7 +355,7 @@ FAMILIES_DEPTH = {"dbrx-132b": 4, "deepseek-v2-236b": 4}
 FAMILIES_LOGIT_RTOL = 0.1
 FAMILIES_K6 = {"qwen2-vl-2b": (28, 0), "zamba2-1.2b": (6, 0),
                "xlstm-125m": (0, 0), "seamless-m4t-medium": (36, 12 + 7 * 12),
-               "dbrx-132b": (4, 0), "deepseek-v2-236b": (0, 0),
+               "dbrx-132b": (4, 0), "deepseek-v2-236b": (4, 0),
                "qwen3-4b": (36, 0), "minicpm-2b": (40, 0),
                "stablelm-1.6b": (24, 0), "llama2-7b": (32, 0)}
 # selective-scan launches of phase 10 (the pinned runs, the full-width
@@ -876,7 +878,8 @@ def kernel_label(name: str) -> str:
             args = [f"{16 * args[0]} rows",
                     "16-byte loads" if args[1] else "byte loads"]
         elif ident == "flash_attn_mma_kernel":
-            args = ["bf16", f"dh {args[0]}"]
+            args = ["bf16", f"dh {args[0]}" if args[0] == args[-1]
+                    else f"dh {args[0]}, dv {args[-1]}"]
         elif ident == "flash_attn_kernel":
             args = [args[0], f"dh {args[1]}"]
         return f"{ident}<{', '.join(map(str, args))}>" if args else ident
@@ -2107,14 +2110,18 @@ def family_extras(cfg, batch: int, prompt_len: int, seed: int) -> dict:
 
 def k6_calls(cfg, extras: dict, max_new: int) -> tuple:
     """Flash-attention calls of one :func:`generate` run: (prefill, the
-    decode steps).  Prefill: every GQA self-attention (``attn``, ``moe``,
-    ``xdec`` and ``sattn`` blocks; MLA takes its einsum product), and
-    with frames the encoder's layers and each ``xdec`` block's
-    cross-attention.  Decode: with frames, the encoder once more (for
-    ``enc_out``) and each ``xdec`` block's cross-attention a step (a
-    single query token: the self-attention of a decode step is the
-    masked product over the cache)."""
-    self_attn = 0 if cfg.mla else sum(
+    decode steps).  Prefill: every self-attention (``attn``, ``moe``,
+    ``xdec`` and ``sattn`` blocks; MLA's where the kernel is built for
+    its widths, else its einsum product), and with frames the encoder's
+    layers and each ``xdec`` block's cross-attention.  Decode: with
+    frames, the encoder once more (for ``enc_out``) and each ``xdec``
+    block's cross-attention a step (a single query token: the
+    self-attention of a decode step is the masked product over the cache,
+    or MLA's absorbed form)."""
+    kernel = not cfg.mla or ops.flash_attention_takes(
+        cfg.head_dim + cfg.rope_head_dim, cfg.head_dim,
+        getattr(torch, cfg.dtype), "cuda")
+    self_attn = kernel * sum(
         kind in ("attn", "moe", "xdec", "sattn") for kind in cfg.pattern)
     if not (cfg.enc_layers and "enc_feats" in extras):
         return self_attn, 0
@@ -2727,8 +2734,8 @@ def main() -> int:
                     (use.get("spill_stores") or use.get("spill_loads")):
                 raise AssertionError(f"{kernel_label(name)} spills: {use}")
     print("  flash_attn_mma_kernel dynamic shared memory a block: "
-          + ", ".join(f"dh {dh} {attention.mma_smem_bytes(dh)} B"
-                      for dh in attention.HEAD_DIMS))
+          + ", ".join(f"dh {dh}, dv {dv} {attention.mma_smem_bytes(dh, dv)} B"
+                      for dh, dv in attention.HEAD_DIMS))
 
     # -- 3. kernels vs plain versions --------------------------------------
     phase("kernels")

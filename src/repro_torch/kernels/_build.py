@@ -45,11 +45,13 @@ SIGNATURES = {
         "ndp_int8_matmul": (_P, _P, _P, _N, _N, _N, _I, _P),
         "ndp_int8_matmul_plan": (_N, _N, _N, _I, _IP),
     },
-    # q, k, v, out, heads, sq, sk, dh, causal, scale * log2(e), stream
+    # q, k, v, out, heads, sq, sk, dh, dv, causal, scale * log2(e), stream
     "attention": {
-        "ndp_flash_attn_f32": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
-        "ndp_flash_attn_bf16": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _F, _P),
-        "ndp_flash_attn_bf16_smem_bytes": (_I,),
+        "ndp_flash_attn_f32": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _I, _F,
+                               _P),
+        "ndp_flash_attn_bf16": (_P, _P, _P, _P, _N, _N, _N, _I, _I, _I, _F,
+                                _P),
+        "ndp_flash_attn_bf16_smem_bytes": (_I, _I),
     },
     # dt, u, B, C, a, h0, y, h, batch, steps, di, n, B's and C's batch and
     # step strides, stream

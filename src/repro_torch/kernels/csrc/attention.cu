@@ -3,12 +3,13 @@
 // Replaces repro/kernels/attention.py _attn_kernel (the Pallas
 // FlashAttention-style kernel: grid (heads, q-blocks), one q tile in VMEM,
 // k/v tiles streamed with a running (max, normaliser, accumulator)).  Per
-// head: out = softmax(q k^T * scale [causal]) v over q [H, Sq, dh] and
-// k, v [H, Sk, dh], the output in q's type.  The causal mask is
-// q_pos >= k_pos, aligned top-left as the TPU kernel aligns it, and k tiles
-// wholly past a block's last row are never loaded.  Any Sq and Sk: the
-// ragged q rows are not stored and the ragged keys are masked, so nothing
-// is padded.  Two kernels, chosen by the element type:
+// head: out = softmax(q k^T * scale [causal]) v over q, k [H, S, dh] and
+// v [H, Sk, dv], the output [H, Sq, dv] in q's type (dv = dh but for
+// MLA's pair, dh 192 and dv 128, which the bf16 kernel alone takes).  The
+// causal mask is q_pos >= k_pos, aligned top-left as the TPU kernel aligns
+// it, and k tiles wholly past a block's last row are never loaded.  Any Sq
+// and Sk: the ragged q rows are not stored and the ragged keys are masked,
+// so nothing is padded.  Two kernels, chosen by the element type:
 //
 // bf16: flash_attn_mma_kernel, FlashAttention-2 on the tensor cores.  A
 // block of 4 warps owns one head and 64 q rows, 16 rows a warp.  q, K and
@@ -226,9 +227,7 @@ constexpr int kMmaKeys = 64;       // keys a K/V tile
 template <int DH>
 struct MmaTile {
   static constexpr int kChunks = DH / 8;             // 16-byte chunks a row
-  static constexpr int kBytes = kMmaKeys * DH * 2;   // one q, K or V tile
-  // q, then K and V twice (double buffer)
-  static constexpr int kSmemBytes = 5 * kBytes;
+  static constexpr int kBytes = kMmaKeys * DH * 2;   // one tile of width DH
   // byte offset of chunk c of row r: the chunk XOR-swizzled with the row,
   // so that the 8 rows of an ldmatrix 8x8 (and 8 consecutive chunks of a
   // copy) fall in 8 distinct 16-byte bank groups
@@ -311,20 +310,30 @@ __device__ __forceinline__ void copy_tile(uint32_t dst,
   }
 }
 
-template <int DH>
+// q, then K and V twice (double buffer): q and K tiles of width DQK, V
+// tiles of width DV
+template <int DQK, int DV>
+constexpr int mma_smem_bytes() {
+  return 3 * MmaTile<DQK>::kBytes + 2 * MmaTile<DV>::kBytes;
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out, long long sq,
                           long long sk, int causal, float scale_log2) {
-  using T = MmaTile<DH>;
-  constexpr int KS = DH / 16;   // 16-wide slices of dh (q k^T's depth)
-  constexpr int ND = DH / 8;    // 8-wide column tiles of the output
+  using T = MmaTile<DQK>;       // q and K tiles
+  using TV = MmaTile<DV>;       // V tiles
+  constexpr int KS = DQK / 16;  // 16-wide slices of q k^T's depth
+  constexpr int ND = DV / 8;    // 8-wide column tiles of the output
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = shared_address(smem);
-  const uint32_t ks[2] = {qs + T::kBytes, qs + 3 * T::kBytes};
-  const uint32_t vs[2] = {qs + 2 * T::kBytes, qs + 4 * T::kBytes};
+  const uint32_t ks[2] = {qs + T::kBytes,
+                          qs + 2 * T::kBytes + TV::kBytes};
+  const uint32_t vs[2] = {qs + 2 * T::kBytes,
+                          qs + 3 * T::kBytes + TV::kBytes};
 
   const long long head = blockIdx.x;
   const long long q0 = static_cast<long long>(gridDim.y - 1 - blockIdx.y) *
@@ -336,15 +345,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int mi = lane / 8;        // ldmatrix: the 8x8 matrix this lane
   const int mr = lane % 8;        // addresses, and its row in it
   const long long w0 = q0 + warp * 16;   // the warp's first row
-  const __nv_bfloat16* qh = q + head * sq * DH;
-  const __nv_bfloat16* kh = k + head * sk * DH;
-  const __nv_bfloat16* vh = v + head * sk * DH;
+  const __nv_bfloat16* qh = q + head * sq * DQK;
+  const __nv_bfloat16* kh = k + head * sk * DQK;
+  const __nv_bfloat16* vh = v + head * sk * DV;
 
   const long long k_end = causal ? min(sk, q0 + kMmaRows) : sk;
   const int n_tiles = static_cast<int>((k_end + kMmaKeys - 1) / kMmaKeys);
-  copy_tile<DH>(qs, qh + q0 * DH, sq - q0, qh);
-  copy_tile<DH>(ks[0], kh, sk, kh);
-  copy_tile<DH>(vs[0], vh, sk, vh);
+  copy_tile<DQK>(qs, qh + q0 * DQK, sq - q0, qh);
+  copy_tile<DQK>(ks[0], kh, sk, kh);
+  copy_tile<DV>(vs[0], vh, sk, vh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -365,8 +374,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int buf = j & 1;
     if (j + 1 < n_tiles) {   // the next tile's copy runs under this tile
       const long long k1 = static_cast<long long>(j + 1) * kMmaKeys;
-      copy_tile<DH>(ks[buf ^ 1], kh + k1 * DH, sk - k1, kh);
-      copy_tile<DH>(vs[buf ^ 1], vh + k1 * DH, sk - k1, vh);
+      copy_tile<DQK>(ks[buf ^ 1], kh + k1 * DQK, sk - k1, kh);
+      copy_tile<DV>(vs[buf ^ 1], vh + k1 * DV, sk - k1, vh);
       cp_async_commit();
     }
 
@@ -453,8 +462,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, vs[buf] + T::offset(16 * kk + mr + 8 * (mi % 2),
-                                                 2 * dp + mi / 2));
+        ldmatrix_x4_trans(b, vs[buf] + TV::offset(16 * kk + mr + 8 * (mi % 2),
+                                                  2 * dp + mi / 2));
         mma_bf16(o[2 * dp], pf[kk], b[0], b[1]);
         mma_bf16(o[2 * dp + 1], pf[kk], b[2], b[3]);
       }
@@ -472,7 +481,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int r = 0; r < 2; ++r) {
     const long long row = w0 + g + 8 * r;
     if (row >= sq) continue;
-    __nv_bfloat16* dst = out + (head * sq + row) * DH + 2 * t;
+    __nv_bfloat16* dst = out + (head * sq + row) * DV + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
@@ -481,21 +490,21 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_mma_dh(const void* q, const void* k, const void* v,
                           void* out, long long heads, long long sq,
                           long long sk, int causal, float scale_log2,
                           cudaStream_t stream) {
   const long long q_tiles = (sq + kMmaRows - 1) / kMmaRows;
   if (heads > 0x7fffffffLL || q_tiles > 65535) return cudaErrorInvalidValue;
-  constexpr int bytes = MmaTile<DH>::kSmemBytes;
+  constexpr int bytes = mma_smem_bytes<DQK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_mma_kernel<DH>,
+      flash_attn_mma_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned int>(heads),
                   static_cast<unsigned int>(q_tiles));
-  flash_attn_mma_kernel<DH><<<grid, kMmaThreads, bytes, stream>>>(
+  flash_attn_mma_kernel<DQK, DV><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -503,19 +512,24 @@ cudaError_t launch_mma_dh(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, dh>) for a head dim the kernels take, else
-// `otherwise`
+template <int N>
+using Dim = std::integral_constant<int, N>;
+
+// f(Dim<dh>, Dim<dv>) for a pair of widths the kernels are built for (dh =
+// dv of 16, 32, 64 or 128, and MLA's 192 and 128), else `otherwise`
 template <typename R, typename F>
-R by_head_dim(int dh, R otherwise, F f) {
+R by_head_dims(int dh, int dv, R otherwise, F f) {
+  if (dh == 192 && dv == 128) return f(Dim<192>(), Dim<128>());
+  if (dh != dv) return otherwise;
   switch (dh) {
     case 16:
-      return f(std::integral_constant<int, 16>());
+      return f(Dim<16>(), Dim<16>());
     case 32:
-      return f(std::integral_constant<int, 32>());
+      return f(Dim<32>(), Dim<32>());
     case 64:
-      return f(std::integral_constant<int, 64>());
+      return f(Dim<64>(), Dim<64>());
     case 128:
-      return f(std::integral_constant<int, 128>());
+      return f(Dim<128>(), Dim<128>());
     default:
       return otherwise;
   }
@@ -525,35 +539,43 @@ R by_head_dim(int dh, R otherwise, F f) {
 
 extern "C" {
 
+// the fp32 kernel takes dh = dv only
 int ndp_flash_attn_f32(const void* q, const void* k, const void* v,
                        void* out, long long heads, long long sq, long long sk,
-                       int dh, int causal, float scale_log2, void* stream) {
-  if (heads < 0 || sq < 0 || sk < 1) return cudaErrorInvalidValue;
+                       int dh, int dv, int causal, float scale_log2,
+                       void* stream) {
+  if (heads < 0 || sq < 0 || sk < 1 || dh != dv) return cudaErrorInvalidValue;
   if (heads == 0 || sq == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_head_dim(dh, cudaErrorInvalidValue, [&](auto d) {
-    return launch_dh<float, decltype(d)::value>(q, k, v, out, heads, sq, sk,
-                                                causal, scale_log2, st);
-  }));
+  return static_cast<int>(by_head_dims(
+      dh, dv, cudaErrorInvalidValue, [&](auto d, auto e) -> cudaError_t {
+        if constexpr (decltype(d)::value == decltype(e)::value) {
+          return launch_dh<float, decltype(d)::value>(
+              q, k, v, out, heads, sq, sk, causal, scale_log2, st);
+        } else {
+          return cudaErrorInvalidValue;
+        }
+      }));
 }
 
 int ndp_flash_attn_bf16(const void* q, const void* k, const void* v,
                         void* out, long long heads, long long sq,
-                        long long sk, int dh, int causal, float scale_log2,
-                        void* stream) {
+                        long long sk, int dh, int dv, int causal,
+                        float scale_log2, void* stream) {
   if (heads < 0 || sq < 0 || sk < 1) return cudaErrorInvalidValue;
   if (heads == 0 || sq == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_head_dim(dh, cudaErrorInvalidValue, [&](auto d) {
-    return launch_mma_dh<decltype(d)::value>(q, k, v, out, heads, sq, sk,
-                                             causal, scale_log2, st);
-  }));
+  return static_cast<int>(by_head_dims(
+      dh, dv, cudaErrorInvalidValue, [&](auto d, auto e) {
+        return launch_mma_dh<decltype(d)::value, decltype(e)::value>(
+            q, k, v, out, heads, sq, sk, causal, scale_log2, st);
+      }));
 }
 
-// dynamic shared memory of the bf16 kernel at head dim dh (0 if none)
-int ndp_flash_attn_bf16_smem_bytes(int dh) {
-  return by_head_dim(dh, 0, [](auto d) {
-    return MmaTile<decltype(d)::value>::kSmemBytes;
+// dynamic shared memory of the bf16 kernel at widths dh, dv (0 if none)
+int ndp_flash_attn_bf16_smem_bytes(int dh, int dv) {
+  return by_head_dims(dh, dv, 0, [](auto d, auto e) {
+    return mma_smem_bytes<decltype(d)::value, decltype(e)::value>();
   });
 }
 

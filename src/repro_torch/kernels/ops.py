@@ -5,7 +5,7 @@ cols]`` operands of one shape, int8 or int32 (int32 for
 ``shift_add_mul``); a ``[n_ops, rows, cols]`` int8 or int32 stack for
 ``mws_bitwise``; an int32 ``[rows, words]`` stack and ``[wpr]`` query
 for ``search_pages``; int8 ``[M, K]`` and ``[K, N]`` for ``int8_matmul``;
-fp32 or bf16 ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with dh 16, 32, 64
+fp32 or bf16 ``q, k [H, S, dh]``, ``v [H, Sk, dv]`` with dh = dv of 16, 32, 64
 or 128 for ``flash_attention``; fp32 ``dt, u [B, S, di]``, ``B, C [B, S,
 N]``, ``a [di]`` and ``h0 [B, di, N]`` for ``selective_scan``.  Any rows
 and cols, any Sq and Sk, any S and di — there is no tiling to pad to.
@@ -125,23 +125,28 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
-    """Attention over ``q [H, Sq, dh]``, ``k, v [H, Sk, dh]`` with an
-    online softmax; ``scale`` defaults to 1/sqrt(dh); the causal mask keeps
-    ``q_pos >= k_pos`` (top-left, as the JAX package's kernel).
+    """Attention over ``q [H, Sq, dh]``, ``k [H, Sk, dh]`` and ``v [H, Sk,
+    dv]`` with an online softmax, ``[H, Sq, dv]`` out; ``scale`` defaults
+    to 1/sqrt(dh); the causal mask keeps ``q_pos >= k_pos`` (top-left, as
+    the JAX package's kernel).  dv = dh of 16, 32, 64 or 128, or MLA's dh
+    192 and dv 128 (``attention.HEAD_DIMS``; the fp32 kernel dv = dh only).
 
     Forward only: the kernel has no backward, as the JAX package's has no
     VJP, so a call that autograd would record raises ``RuntimeError`` on
     every device (a gradient through the plain version would hold on the
     CPU only).  Training attends through the chunked einsum path of
     ``models/layers.py``."""
-    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or \
-            q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
-        raise ValueError(f"flash_attention: expected q [H, Sq, dh] and k, v "
-                         f"[H, Sk, dh], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[2] not in _attention.HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {q.shape[2]} not one "
-                         f"of {_attention.HEAD_DIMS}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3 or \
+            k.shape[:2] != v.shape[:2] or q.shape[0] != k.shape[0] or \
+            q.shape[2] != k.shape[2]:
+        raise ValueError(f"flash_attention: expected q [H, Sq, dh], k "
+                         f"[H, Sk, dh] and v [H, Sk, dv], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (q.shape[2], v.shape[2]) not in _attention.HEAD_DIMS:
+        raise ValueError(f"flash_attention: widths (dh {q.shape[2]}, dv "
+                         f"{v.shape[2]}) not one of "
+                         f"{_attention.HEAD_DIMS}")
     if q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError(f"flash_attention: empty sequence, Sq "
                          f"{q.shape[1]}, Sk {k.shape[1]}")
@@ -165,6 +170,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _attention.flash_attention(q.contiguous(), k.contiguous(),
                                           v.contiguous(), causal, scale)
     return ref.flash_attention_plain(q, k, v, causal, scale)
+
+
+def flash_attention_takes(dh: int, dv: int, dtype: torch.dtype,
+                          device: torch.device | str) -> bool:
+    """Whether :func:`flash_attention` on ``device`` takes q·k depth ``dh``
+    and v width ``dv`` in ``dtype``: a pair of ``HEAD_DIMS``, and on the
+    card dv = dh unless bf16 (the fp32 kernel is built for equal widths;
+    the plain version takes every pair).  A caller with another pair
+    attends through its einsum path."""
+    return (dh, dv) in _attention.HEAD_DIMS and (
+        dh == dv or dtype == torch.bfloat16
+        or torch.device(device).type != "cuda")
 
 
 def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,

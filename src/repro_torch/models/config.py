@@ -7,7 +7,10 @@ encoder-decoder (audio) and VLM backbones with M-RoPE.  ``reduced()``
 returns the family-preserving small config used by CPU smoke tests.
 
 A copy of the JAX package's schema, field for field (the tests hold the
-two equal).
+two equal), followed by the port's own fields: a leading dense stack,
+DeepSeek-V2's group-limited routing over a device's share of the experts,
+and YaRN for MLA's rotary part.  Their defaults change nothing of a
+shipped config.
 """
 from __future__ import annotations
 
@@ -66,6 +69,26 @@ class ArchConfig:
     # provenance
     source: str = ""
 
+    # -- the port's own fields (none in the JAX package's schema); their
+    # defaults leave every shipped config as the JAX package has it
+    first_dense: int = 0              # leading dense layers of an MoE stack
+    # DeepSeek-V2's routing (``models/layers.py`` ``moe_held_apply``): a
+    # softmax router over ``router_experts`` (0: the JAX package's top-k
+    # MoE over ``n_experts``) of which this device holds ``n_experts``,
+    # from ``expert_offset`` on
+    router_experts: int = 0
+    expert_offset: int = 0
+    n_group: int = 0                  # expert groups; 0: no group limit
+    topk_group: int = 0               # groups a token may route to
+    routed_scaling: float = 1.0       # the routed experts' weight factor
+    # YaRN scaling of MLA's rotary part; factor 0: plain RoPE
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
@@ -74,8 +97,16 @@ class ArchConfig:
     def pattern(self) -> Tuple[str, ...]:
         if self.block_pattern:
             return self.block_pattern
-        kind = "moe" if self.moe else "attn"
-        return tuple([kind] * self.n_layers)
+        if self.moe:
+            return (("attn",) * self.first_dense
+                    + ("moe",) * (self.n_layers - self.first_dense))
+        return tuple(["attn"] * self.n_layers)
+
+    @property
+    def held_experts(self) -> bool:
+        """The MoE layers route over ``router_experts`` with DeepSeek-V2's
+        rule and compute the held experts' share (``moe_held_apply``)."""
+        return self.moe and self.router_experts > 0
 
     @property
     def sub_quadratic(self) -> bool:
@@ -109,7 +140,7 @@ class ArchConfig:
                     ff = self.moe_d_ff or self.d_ff
                     n += self.n_experts * 3 * d * ff
                     n += self.n_shared_experts * 3 * d * ff
-                    n += d * self.n_experts          # router
+                    n += d * (self.router_experts or self.n_experts)
                 else:
                     n += 3 * d * self.d_ff
             elif blk == "mamba":

@@ -31,12 +31,19 @@ within the bf16 tolerance of ``kernels/ref.py``.  Training
 (``flash=False``) takes the JAX package's own chunked einsum path
 (``SDPA_CHUNK``, ``_sdpa_block``): K6 has no backward there either, and
 refuses autograd here.  MLA never reaches ``_sdpa`` in the reference (its
-q·k width, dh + ``rope_head_dim``, is not v's), so it keeps its masked
-einsum product here too and launches no kernel.
+q·k width, dh + ``rope_head_dim``, is not v's); here a served prompt goes
+through the kernel where it is built for MLA's pair of widths (bf16 at
+192 and 128), and MLA otherwise keeps the reference's masked einsum
+product (``mla_attention``).
+
+DeepSeek-V2's own routing (``group_limited_route``) and the share of an
+expert-parallel layer that one device computes (``moe_held_apply``) serve
+a config with the port's ``router_experts`` field.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -200,14 +207,74 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 m ln s + 1`` (1 at a factor <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=8)
+def yarn_freqs(cfg: ArchConfig, dim: int,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    """DeepSeek-V2's YaRN frequencies of a rotary part of width ``dim``
+    (float64): ``f_e m + f_e / s (1 - m)``, ``f_e`` RoPE's, ``s`` the
+    factor, ``m`` 1 less a linear ramp over the frequency index from
+    ``floor(c(beta_fast))`` to ``ceil(c(beta_slow))`` clamped to [0, 1],
+    ``c(n) = dim ln(L / (2 pi n)) / (2 ln theta)`` at the original
+    context ``L``.  Made on the device once a config (a decode step would
+    make them again in every layer)."""
+    f_e = rope_freqs(dim, cfg.rope_theta, device)
+
+    def c(n: float) -> float:
+        return (dim * math.log(cfg.yarn_original_max / (n * 2 * math.pi))
+                / (2 * math.log(cfg.rope_theta)))
+
+    low = max(math.floor(c(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(c(cfg.yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float64, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    m = 1.0 - ramp
+    return f_e * m + f_e / cfg.yarn_factor * (1.0 - m)
+
+
+def mla_rope(cfg: ArchConfig, device: torch.device | str = "cpu"
+             ) -> Tuple[torch.Tensor, float]:
+    """MLA's rotary frequencies (float64) and the factor on its cos and
+    sin: YaRN's where ``cfg.yarn_factor`` is set, else RoPE's and 1."""
+    rd = cfg.rope_head_dim
+    if not cfg.yarn_factor:
+        return rope_freqs(rd, cfg.rope_theta, device), 1.0
+    return (yarn_freqs(cfg, rd, device),
+            yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+            / yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+
+
+def mla_softmax_scale(cfg: ArchConfig) -> float:
+    """``(dh + rope_head_dim)^-1/2``, times YaRN's attention factor
+    squared where the config scales its rotary part (DeepSeek-V2)."""
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10_000.0) -> torch.Tensor:
-    """x [..., S, H, dh]; positions [..., S] (int)."""
+               theta: float = 10_000.0,
+               freqs: Optional[torch.Tensor] = None,
+               mscale: float = 1.0) -> torch.Tensor:
+    """x [..., S, H, dh]; positions [..., S] (int).  ``freqs``: the
+    frequencies to rotate by (default RoPE's at ``theta``); ``mscale``
+    multiplies cos and sin."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device).float()
+    if freqs is None:
+        freqs = rope_freqs(dh, theta, x.device)
+    freqs = freqs.float()
     ang = positions[..., None].float() * freqs               # [..., S, dh/2]
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -428,20 +495,40 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                  positions: torch.Tensor, cache: Optional[Dict] = None):
+                  positions: torch.Tensor, cache: Optional[Dict] = None,
+                  flash: bool = True):
     """Multi-head latent attention: KV compressed to ``kv_lora_rank`` (the
-    cache stores only the r + ``rope_head_dim`` latent) and up-projected
-    per head at attention time.
+    cache stores only the r + ``rope_head_dim`` latent), the rotary part
+    by RoPE, or by YaRN where the config scales it (``mla_rope``,
+    ``mla_softmax_scale``).
 
     ``cache``: {"latent" [B,Smax,r], "k_rope" [B,Smax,rd], "index" int},
-    written in place at ``index``; attention then runs over every cache
-    slot under the causal mask, as in the JAX package.  Without a cache, a
-    sequence longer than ``SDPA_CHUNK`` and a multiple of it goes in q-row
-    blocks (the reference's ``lax.scan``).  Scores are products of the
-    working type summed in fp32 (``preferred_element_type``)."""
+    written in place at ``index``.  On plain tensors a cache takes the
+    serving paths: a prompt written at index 0 attends through the
+    flash-attention kernel when ``flash`` and the kernel is built for its
+    widths (``_mla_prefill``: q·k at depth dh + rd, v of width dh;
+    DeepSeek-V2's 192 and 128, on the card in bf16), any other step
+    through the absorbed form
+    (``_mla_absorbed``), which reads the latent cache's filled slots and
+    up-projects nothing of its length.  Otherwise (no cache, ``flash``
+    off, or DTensors) the JAX package's product: keys and values
+    up-projected per head from every latent row, attention over every
+    cache slot under the causal mask, and without a cache a sequence
+    longer than ``SDPA_CHUNK`` and a multiple of it in q-row blocks (the
+    reference's ``lax.scan``); scores are products of the working type
+    summed in fp32 (``preferred_element_type``)."""
+    with spans.span("mla"):
+        return _mla_attention(p, cfg, x, positions, cache, flash)
+
+
+def _mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor, cache: Optional[Dict],
+                   flash: bool):
     b, s, _ = x.shape
     dh, r, rd = cfg.head_dim, cfg.kv_lora_rank, cfg.rope_head_dim
     h = cfg.n_heads
+    freqs, mscale = mla_rope(cfg, x.device)
+    scale = mla_softmax_scale(cfg)
 
     if cfg.q_lora_rank:
         q = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) @ p["w_uq"]
@@ -449,12 +536,13 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         q = x @ p["w_q"]
     q = split_heads(q, h, dh + rd)
     q_nope, q_rope = q[..., :dh], q[..., dh:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, freqs=freqs, mscale=mscale)
 
     dkv = x @ p["w_dkv"]                       # [b, s, r+rd]
     latent, k_rope = dkv[..., :r], dkv[..., r:]
     latent = rmsnorm(latent, p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, freqs=freqs,
+                        mscale=mscale)
 
     if cache is not None:
         idx = cache["index"]
@@ -462,8 +550,30 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         cl[:, idx:idx + s] = latent
         cr[:, idx:idx + s] = k_rope[:, :, 0, :]
         new_cache = {"latent": cl, "k_rope": cr, "index": idx + s}
+        if not isinstance(x, DTensor) and (
+                idx > 0 or s == 1 or flash and ops.flash_attention_takes(
+                    dh + rd, dh, x.dtype, x.device)):
+            item = cl.element_size()
+            if idx == 0 and s > 1:
+                with spans.span("mla.prefill_attn"):
+                    out = _mla_prefill(p, q_nope, q_rope, latent,
+                                       k_rope[:, :, 0, :], scale)
+                # the per-head keys and values it makes of the prompt
+                spans.count("mla.cache_bytes", b * s * h * (2 * dh + rd)
+                            * item)
+            else:
+                with spans.span("mla.decode_attn"):
+                    out = _mla_absorbed(p, q_nope, q_rope, cl, cr, idx,
+                                        scale)
+                spans.count("mla.cache_bytes", b * (idx + s) * (r + rd)
+                            * item)
+            return merge_heads(out) @ p["wo"], new_cache
         latent_all, k_rope_flat = cl, cr
         q_base = idx
+        if spans.on():
+            # the whole cache read, and keys and values made over its length
+            spans.count("mla.cache_bytes", cl.shape[0] * cl.shape[1]
+                        * (r + rd + 2 * h * dh) * cl.element_size())
     else:
         new_cache = None
         latent_all, k_rope_flat = latent, k_rope[:, :, 0, :]
@@ -480,25 +590,87 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     spec = heads_spec(q_nope, h)
     out = on_shards(
         lambda qn, qr, kn, kr, v_: _mla_scores(qn, qr, kn, kr, v_, q_base,
-                                               chunked),
+                                               chunked, scale),
         (q_nope, q_rope, k_nope, k_rope_flat, v),
         (spec, spec, spec, spec[:2] + (None,), spec), spec)
     return merge_heads(out) @ p["wo"], new_cache
 
 
+def _mla_prefill(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                 latent: torch.Tensor, k_rope: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """A prompt's causal attention through the flash-attention kernel: q
+    ``[q_nope | q_rope]`` and k ``[k_nope | k_rope]`` (the rope key shared
+    by every head) at depth dh + rd, v of width dh, each laid out
+    ``[B·H, S, ·]`` by one copy; returns ``[B, S, H, dh]``."""
+    b, s, h, dh = q_nope.shape
+    rd = q_rope.shape[-1]
+    qh = q_nope.new_empty((b, h, s, dh + rd))
+    qh[..., :dh] = q_nope.transpose(1, 2)
+    qh[..., dh:] = q_rope.transpose(1, 2)
+    kh = q_nope.new_empty((b, h, s, dh + rd))
+    kh[..., :dh] = (latent @ p["w_uk"]).view(b, s, h, dh).transpose(1, 2)
+    kh[..., dh:] = k_rope[:, None]
+    vh = (latent @ p["w_uv"]).view(b, s, h, dh).transpose(1, 2).reshape(
+        b * h, s, dh)
+    out = ops.flash_attention(qh.view(b * h, s, dh + rd),
+                              kh.view(b * h, s, dh + rd), vh, causal=True,
+                              scale=scale)
+    return out.view(b, h, s, dh).transpose(1, 2)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched) of the working type's operands, summed and
+    returned in fp32: cuBLAS's fp32 output on the card, the operands cast
+    elsewhere (the CPU has no such product)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _mla_absorbed(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  cl: torch.Tensor, cr: torch.Tensor, idx: int,
+                  scale: float) -> torch.Tensor:
+    """q ``[B,S,H,dh]`` (+ rope part ``[B,S,H,rd]``) at positions
+    ``idx..`` over the cache's filled slots ``[0, idx + S)`` in the
+    absorbed form: ``w_uk`` folded into q (``q_lat = q_nope w_ukᵀ`` per
+    head, ``[B,H,S,r]``), scores ``q_lat·latent + q_rope·k_rope`` as
+    products of the working type summed in fp32 (as K6 and the
+    up-projecting path keep them), the causal mask over the new rows, an
+    fp32 softmax, ``o_lat = p·latent``, and ``w_uv`` applied to ``o_lat``
+    per head; returns ``[B,S,H,dh]`` in q's type."""
+    b, s, h, dh = q_nope.shape
+    r, rd = cl.shape[-1], cr.shape[-1]
+    n = idx + s
+    w_uk = p["w_uk"].view(r, h, dh)
+    q_lat = torch.einsum("bshd,rhd->bhsr", q_nope, w_uk).reshape(b, h * s,
+                                                                  r)
+    q_r = q_rope.transpose(1, 2).reshape(b, h * s, rd)
+    lat, k_r = cl[:, :n], cr[:, :n]
+    scores = (_bmm_f32(q_r, k_r.transpose(1, 2))
+              + _bmm_f32(q_lat, lat.transpose(1, 2)))
+    lg = scores.view(b, h, s, n) * scale
+    if s > 1:
+        qpos = idx + torch.arange(s, device=lg.device)[:, None]
+        kpos = torch.arange(n, device=lg.device)[None, :]
+        lg = torch.where(kpos <= qpos, lg, -1e30)
+    probs = torch.softmax(lg, dim=-1).to(q_nope.dtype).view(b, h * s, n)
+    o_lat = torch.bmm(probs, lat).view(b, h, s, r)
+    return torch.einsum("bhsr,rhd->bshd", o_lat, p["w_uv"].view(r, h, dh))
+
+
 def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
                 k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor,
-                q_base: int, chunked: bool) -> torch.Tensor:
+                q_base: int, chunked: bool, scale: float) -> torch.Tensor:
     """MLA's attention of q [B,S,H,dh] (+ its rope part [B,S,H,rd]) at
     positions ``q_base..`` over keys [B,Sk,H,dh] (+ the shared rope key
     [B,Sk,rd]) and values [B,Sk,H,dh] under the causal mask, in q-row
     blocks of ``SDPA_CHUNK`` when ``chunked``; returns [B,S,H,dh] in q's
     type."""
     dtype = q_nope.dtype
-    s, dh, rd = q_nope.shape[1], q_nope.shape[-1], q_rope.shape[-1]
+    s = q_nope.shape[1]
     k_nope, v, k_rope = k_nope.float(), v.float(), k_rope.float()
     sk = k_nope.shape[1]
-    scale = 1.0 / math.sqrt(dh + rd)
 
     def block(qn: torch.Tensor, qr: torch.Tensor, offset: int):
         lg = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
@@ -539,8 +711,9 @@ def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig,
              dtype: torch.dtype) -> Params:
-    """The router, the experts' SwiGLU weights stacked on a leading expert
-    axis ``[E, ...]``, and the shared experts as one wider MLP."""
+    """The router (over ``router_experts`` where set), the held experts'
+    SwiGLU weights stacked on a leading expert axis ``[E, ...]``, and the
+    shared experts as one wider MLP."""
     d = cfg.d_model
     ff = cfg.moe_d_ff or cfg.d_ff
     e = cfg.n_experts
@@ -551,7 +724,8 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig,
             w[i] = dense_init(gen, d_in, d_out, dtype)
         return w
 
-    p = {"router": dense_init(gen, d, e, dtype, scale=0.02),
+    p = {"router": dense_init(gen, d, cfg.router_experts or e, dtype,
+                              scale=0.02),
          "experts": {"w1": stacked(d, ff), "w3": stacked(d, ff),
                      "w2": stacked(ff, d)}}
     if cfg.n_shared_experts:
@@ -699,6 +873,73 @@ def _moe_routed_sharded(p: Params, cfg: ArchConfig, xf: torch.Tensor,
         mesh, tok)
 
 
+def group_limited_route(p: Params, cfg: ArchConfig, xf: torch.Tensor):
+    """DeepSeek-V2's routing of ``xf [T, D]`` over ``router_experts``:
+    ``scores`` the fp32 softmax of the router's logits (computed from the
+    working type's operands in fp32); with groups, each group scored by
+    its best expert and all but the ``topk_group`` best groups zeroed;
+    the ``experts_per_tok`` largest scores left (ties to the lower index),
+    each weighted by its score times ``routed_scaling``, not renormalised.
+    Returns ``(scores [T, E_r], top_idx [T, k], weights [T, k] fp32)``."""
+    scores = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    chosen = scores
+    if cfg.n_group > 1:
+        t, e = scores.shape
+        groups = scores.view(t, cfg.n_group, e // cfg.n_group)
+        _, keep = top_k(groups.amax(-1), cfg.topk_group)
+        mask = torch.zeros(t, cfg.n_group, dtype=torch.bool,
+                           device=xf.device).scatter_(1, keep, True)
+        chosen = torch.where(mask[..., None], groups, 0.0).view(t, e)
+    top_vals, top_idx = top_k(chosen, cfg.experts_per_tok)
+    return scores, top_idx, top_vals * cfg.routed_scaling
+
+
+def moe_held_apply(p: Params, cfg: ArchConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """One device's share of an expert-parallel MoE layer: every token
+    routed over all ``router_experts`` (``group_limited_route``), the
+    (token, expert) pairs whose expert this device holds (``[offset,
+    offset + n_experts)``) each through its expert, with no capacity and
+    no pair dropped, weighted and summed into their token, then the shared
+    experts once.  The pairs are sorted by held expert, the others last,
+    and the experts' products are grouped GEMMs over device offsets
+    (``torch._grouped_mm``), so that nothing is read back to the host."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.experts_per_tok, cfg.n_experts
+    xf = x.reshape(t, d)
+    with spans.span("moe.route"):
+        _, top_idx, weights = group_limited_route(p, cfg, xf)
+        local = top_idx.reshape(-1) - cfg.expert_offset      # [T*k]
+        held = (local >= 0) & (local < e)
+        key = torch.where(held, local, e)
+        order = torch.argsort(key, stable=True)
+        # pairs a held expert has, counted on the device (``bincount``
+        # reads the largest key back to the host)
+        counts = torch.zeros(e + 1, dtype=torch.int64, device=key.device)
+        counts.index_add_(0, key, torch.ones_like(key))
+        offs = torch.cumsum(counts[:e], 0).to(torch.int32)
+        held_sorted = held[order]
+    spans.count("moe.pairs", t * k)
+    if spans.on():
+        spans.count("moe.pairs_held", held.sum())   # read after the rounds
+    with spans.span("moe.experts"):
+        w = p["experts"]
+        xs = xf.index_select(0, order // k)
+        hid = F.silu(torch._grouped_mm(xs, w["w1"], offs=offs)) \
+            * torch._grouped_mm(xs, w["w3"], offs=offs)
+        ys = torch._grouped_mm(hid, w["w2"], offs=offs)
+        # the rows past the held pairs are left unwritten by the products
+        ys = torch.where(held_sorted[:, None],
+                         ys * weights.reshape(-1)[order, None].to(ys.dtype),
+                         0)
+        y = torch.empty_like(ys).index_copy_(0, order, ys)
+        y = y.view(t, k, d).sum(dim=1)
+    if cfg.n_shared_experts:
+        with spans.span("moe.shared"):
+            y = y + mlp_apply(p["shared"], xf)
+    return y.reshape(b, s, d)
+
+
 def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
               capacity_factor: float = 1.25) -> torch.Tensor:
     """Top-k token-choice MoE with capacity-bounded dispatch.  On DTensors
@@ -706,7 +947,16 @@ def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     (``_moe_routed_sharded``); otherwise the JAX package's single-device
     path (``moe_route``, a scatter-add into ``[E, cap, D]`` buffers, the
     experts' batched products, the gather and the prob-weighted sum).  The
-    shared experts follow either."""
+    shared experts follow either.  A config that routes over a held share
+    of the experts (``cfg.held_experts``) takes ``moe_held_apply``."""
+    with spans.span("moe"):
+        if cfg.held_experts:
+            return moe_held_apply(p, cfg, x)
+        return _moe_capacity_apply(p, cfg, x, capacity_factor)
+
+
+def _moe_capacity_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                        capacity_factor: float) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_tok, cfg.n_experts

@@ -20,7 +20,9 @@ Whole-sequence attention is chosen by the ``flash`` argument, passed down
 to every attention (self, shared, cross and encoder): the flash-attention
 kernel for serving, the JAX package's chunked einsum path for
 :func:`lm_loss`, which autograd differentiates (the kernel, like the JAX
-package's, has no backward).  MLA keeps its own einsum product either way.
+package's, has no backward).  MLA's prompt goes through the kernel too
+when serving; its decode steps take the absorbed form over the latent
+cache (``models/layers.py`` ``mla_attention``).
 
 On DTensors (the dry-run of :mod:`repro_torch.launch.dryrun`) the
 embedding lookup, the logits and the loss follow the sharding hints of
@@ -183,7 +185,7 @@ def params_from_numpy(cfg: ArchConfig, tree: Params,
 def _attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, cache, pos3, flash: bool):
     if cfg.mla:
-        return L.mla_attention(p, cfg, x, positions, cache)
+        return L.mla_attention(p, cfg, x, positions, cache, flash=flash)
     return L.gqa_attention(p, cfg, x, positions, cache, pos3=pos3,
                            flash=flash)
 

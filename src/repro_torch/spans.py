@@ -1,8 +1,9 @@
 """Host spans and counters of the serving path, off by default.
 
 The serving loop (``launch/serve.py``), the model's cache path
-(``models/model.py``), the time scans (``models/ssm.py``) and the cached
-attention (``models/layers.py``) mark where the host is:
+(``models/model.py``), the time scans (``models/ssm.py``), the cached
+attention, MLA and the MoE layer (``models/layers.py``) mark where the
+host is:
 
 * a span is a named interval of the host's clock with an id, its
   parent's id, the serving batch it belongs to and, for a block, its
@@ -158,8 +159,9 @@ class Recorder:
 
     def counters(self) -> List[Dict]:
         """Each counter's total in each ``serve.*`` span (``span`` -1:
-        outside every one)."""
-        return [{"span": sid, "name": name, "value": value}
+        outside every one); a total added as device tensors is read back
+        here."""
+        return [{"span": sid, "name": name, "value": int(value)}
                 for (sid, name), value in self._counts.items()]
 
 
@@ -263,9 +265,10 @@ def end(sid: Optional[int], t_ns: Optional[int] = None) -> None:
     _recorder.close(sid, t_ns)
 
 
-def count(name: str, n: int) -> None:
+def count(name: str, n) -> None:
     """Adds ``n`` to counter ``name`` in the innermost open ``serve.*``
-    span."""
+    span; ``n`` may be a one-element integer tensor, which stays on its
+    device until the counters are read (no read-back inside the step)."""
     if _recorder is None:
         return
     _recorder.add(name, n)

@@ -24,7 +24,8 @@ from torch.utils import _pytree as pytree
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
-from _lm_reference import jax_config, jax_params, serve_tokens  # noqa: E402
+from _lm_reference import (as_port_fields, jax_config, jax_params,  # noqa: E402
+                           serve_tokens)
 from repro.launch.steps import build_train_step as ref_train_step  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro.optim import adamw as repro_adamw  # noqa: E402
@@ -121,7 +122,7 @@ def pair(arch: str, pattern=None) -> Pair:
     pattern = pattern or PATTERNS.get(arch)
     cfg_j = jax_config(arch, pattern=pattern)
     cfg_t = port_config(arch, pattern=pattern)
-    assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
+    assert dataclasses.asdict(cfg_t) == as_port_fields(cfg_j)
     tree = jax_params(arch, pattern=pattern)
     tokens = np.random.default_rng(TOKENS_SEED).integers(
         0, cfg_j.vocab, (B, S + STEPS), dtype=np.int32)

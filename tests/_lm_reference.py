@@ -23,6 +23,17 @@ DENSE_ARCHS = ("tinyllama-1.1b", "qwen3-4b", "llama2-7b", "minicpm-2b",
                "stablelm-1.6b")
 
 
+def as_port_fields(cfg_j) -> dict:
+    """``dataclasses.asdict`` of the JAX config ``cfg_j`` with the port's
+    own ``ArchConfig`` fields (none in the JAX schema) at their defaults:
+    what the port's config of the same model holds."""
+    from repro_torch.models.config import ArchConfig
+    jax_names = {f.name for f in dataclasses.fields(cfg_j)}
+    return dict(dataclasses.asdict(cfg_j),
+                **{f.name: f.default for f in dataclasses.fields(ArchConfig)
+                   if f.name not in jax_names})
+
+
 def jax_config(arch: str, dtype: str = "float32", pattern=None):
     """Reduced ``arch`` in ``dtype``; ``pattern`` replaces its block
     pattern (and depth)."""

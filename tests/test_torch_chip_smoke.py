@@ -208,10 +208,10 @@ def test_serve_reference_is_the_jax_packages():
     """The pinned digests are those of the JAX package's prefill and serve
     steps, in its serving loop, on the smoke's numpy weights and the
     prompts of its ``serve(seed=0)``."""
-    from _lm_reference import jax_config, serve_tokens
+    from _lm_reference import as_port_fields, jax_config, serve_tokens
     cfg = chip_smoke.pinned_config()
     cfg_j = jax_config(chip_smoke.SERVE_ARCH)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    assert dataclasses.asdict(cfg) == as_port_fields(cfg_j)
     p = chip_smoke.SERVE_PINNED
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=p["prompt_len"],
@@ -259,11 +259,12 @@ def test_families_reference_is_the_jax_packages(arch):
     ``serve(seed=0)``, and for the stubbed configs its prefill and serve
     steps (decode cross-attending to ``encode``) on the smoke's prompts
     and stubs."""
-    from _lm_reference import extras_tokens, jax_config, serve_tokens
+    from _lm_reference import (as_port_fields, extras_tokens, jax_config,
+                               serve_tokens)
     cfg = chip_smoke.family_config(arch)
     pattern = (chip_smoke.ZAMBA2_PERIOD if arch == "zamba2-1.2b" else None)
     cfg_j = jax_config(arch, pattern=pattern)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    assert dataclasses.asdict(cfg) == as_port_fields(cfg_j)
     tree = chip_smoke.jax_layout_params(cfg, seed=0)
     p = chip_smoke.SERVE_PINNED
     rng = np.random.default_rng(0)
@@ -415,12 +416,12 @@ def test_train_reference_is_the_jax_packages(microbatches):
     batches, within TRAIN_TOL (XLA's CPU sums may differ in the last bit
     between machines)."""
     import jax.numpy as jnp
-    from _lm_reference import jax_config
+    from _lm_reference import as_port_fields, jax_config
     from repro.data import SyntheticLM
     from repro.launch.steps import build_train_step
     from repro.optim import adamw_init
     cfg = jax_config(chip_smoke.SERVE_ARCH)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+    assert as_port_fields(cfg) == dataclasses.asdict(
         chip_smoke.pinned_config())
     p = chip_smoke.TRAIN_PINNED
     step_fn = jax.jit(build_train_step(cfg, total_steps=p["steps"],

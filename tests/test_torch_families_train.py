@@ -20,7 +20,7 @@ from torch.utils import _pytree as pytree  # noqa: E402
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
-from _lm_reference import jax_config, train_rows  # noqa: E402
+from _lm_reference import as_port_fields, jax_config, train_rows  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -74,7 +74,7 @@ def test_families_train_reference_is_the_jax_packages(arch):
     between machines)."""
     cfg = chip_smoke.family_config(arch)
     cfg_j = jax_config(arch, pattern=_pattern(arch))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    assert dataclasses.asdict(cfg) == as_port_fields(cfg_j)
     p = chip_smoke.FAMILIES_TRAIN_PINNED
     got = train_rows(cfg_j, chip_smoke.jax_layout_params(cfg, seed=0),
                      _batches(cfg), p["steps"], p["base_lr"])

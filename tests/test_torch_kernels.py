@@ -1013,6 +1013,37 @@ def test_cuda_flash_attention_equals_its_plain_version():
     assert ops.launch_counts()["flash_attention"] == n
 
 
+# MLA's widths (DeepSeek-V2: q·k at 128 + 64, v at 128): one tile, several
+# q tiles with the causal diagonal, ragged Sq != Sk, a single query row
+ATTN_MLA = [(4, 64, 64), (8, 300, 300), (3, 77, 133), (2, 1, 150)]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_at_mla_widths_equals_its_plain_version():
+    """K6's bf16 kernel at q·k depth 192 and v width 128 against the plain
+    version at 1e-2 (``ref.py``), causal and not; its output is [H, Sq,
+    128]; the fp32 kernel, built for equal widths, refuses the pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/attention.cu: not found")
+    rng = np.random.default_rng(9)
+    for h, sq, sk in ATTN_MLA:
+        for causal in (True, False):
+            q, k = (torch.from_numpy(rng.normal(size=(h, s, 192)).astype(
+                np.float32)).to("cuda", torch.bfloat16) for s in (sq, sk))
+            v = torch.from_numpy(rng.normal(size=(h, sk, 128)).astype(
+                np.float32)).to("cuda", torch.bfloat16)
+            got = ops.flash_attention(q, k, v, causal=causal, scale=0.11)
+            torch.cuda.synchronize()
+            assert got.shape == (h, sq, 128)
+            want = ref.flash_attention_plain(q, k, v, causal, 0.11)
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                       rtol=1e-2)
+    with pytest.raises(ValueError, match="dh = dv"):
+        ops.flash_attention(q.float(), k.float(), v.float())
+
+
 # -- the selective scan -------------------------------------------------------
 # (B, S, di, N): zamba2's serving prefill, then a ragged di (not a multiple
 # of a block's 128 channels) and S (not of a tile's 8 steps) at the smallest

@@ -20,7 +20,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
-from _lm_reference import (DENSE_ARCHS, jax_config,  # noqa: E402
+from _lm_reference import (DENSE_ARCHS, as_port_fields, jax_config,  # noqa: E402
                            jax_params)
 from repro import configs as repro_configs  # noqa: E402
 from repro.models import config as repro_config  # noqa: E402
@@ -62,22 +62,38 @@ def _close(got, want, tol):
 
 # -- configs ------------------------------------------------------------------
 
+# the port's own fields, after the JAX package's: a leading dense stack,
+# DeepSeek-V2's routing over a held share of the experts, and YaRN
+PORT_FIELDS = ("first_dense", "router_experts", "expert_offset", "n_group",
+               "topk_group", "routed_scaling", "yarn_factor",
+               "yarn_original_max", "yarn_beta_fast", "yarn_beta_slow",
+               "yarn_mscale", "yarn_mscale_all_dim")
+
+
 def test_arch_config_schema_is_the_jax_packages():
+    """Every field of the JAX package's schema, in its order, with its
+    type and default; then the port's own fields."""
     fields = [(f.name, f.type, f.default)
               for f in dataclasses.fields(config.ArchConfig)]
-    assert fields == [(f.name, f.type, f.default)
-                      for f in dataclasses.fields(repro_config.ArchConfig)]
+    jax_fields = [(f.name, f.type, f.default)
+                  for f in dataclasses.fields(repro_config.ArchConfig)]
+    assert fields[:len(jax_fields)] == jax_fields
+    assert tuple(f[0] for f in fields[len(jax_fields):]) == PORT_FIELDS
     assert configs.ARCHS == repro_configs.ARCHS
     assert configs.PAPER_ARCHS == repro_configs.PAPER_ARCHS
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_every_config_equals_the_jax_packages(arch):
+    """Each shipped config holds the JAX package's values in every JAX
+    field and the defaults in the port's own, and so has its pattern,
+    parameter count and reduced config (the defaults change none)."""
     mine, theirs = configs.get(arch), repro_configs.get(arch)
     for a, b in ((mine, theirs), (mine.reduced(), theirs.reduced())):
-        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert dataclasses.asdict(a) == as_port_fields(b)
         assert a.head_dim == b.head_dim and a.pattern == b.pattern
         assert a.param_count() == b.param_count()
+        assert not a.held_experts
         assert a.active_param_count() == b.active_param_count()
         assert a.sub_quadratic == b.sub_quadratic
 
