@@ -38,8 +38,9 @@ last line:
    (``FAMILY_ATTN``, one query token against 256 keys among them); the
    selective scan (Mamba2's time loop in one launch) at zamba2's serving
    prefill and one decode step from the state it left, within
-   ``SCAN_TOL`` of its plain version, timed beside its plain loop and its
-   bound (no PyTorch call computes it);
+   ``SCAN_TOL`` of its plain version, also with the last state written
+   over h0 itself as serving calls it, timed beside its plain loop and
+   its bound (no PyTorch call computes it);
 4. pipeline — jacobi1d, aes, xor_filter, heat3d, llama2_infer and
    llm_train at paper scale through the package's entry points: numeric
    run on the card (its outputs' digest must be the JAX package's; fp32
@@ -118,8 +119,10 @@ last line:
    bf16 from a seeded random init, dbrx and deepseek cut to 4 layers
    (their whole depth outgrows the card), one batch of 4 x 1024-token
    prompts with their stubs, prefill and 7 decode steps: the kernel's
-   launches exactly ``FAMILIES_K6``, the selective scan's exactly
-   ``FAMILIES_SCAN`` (in the pinned runs too), every call of a recorded
+   launches exactly ``FAMILIES_K6``, the selective scan's kernel runs
+   exactly ``FAMILIES_SCAN`` (in the pinned runs too; counted in a
+   device trace, since the decode steps of the configs with only
+   attention and Mamba2 blocks replay a CUDA graph), every call of a recorded
    second run within ``ATTN_TOL`` of the plain version, the last-token logits
    finite and within ``FAMILIES_LOGIT_RTOL`` of the einsum path's; the
    prefill and decode times, tokens/s, peak memory and the MoE share of
@@ -358,8 +361,11 @@ FAMILIES_K6 = {"qwen2-vl-2b": (28, 0), "zamba2-1.2b": (6, 0),
                "dbrx-132b": (4, 0), "deepseek-v2-236b": (4, 0),
                "qwen3-4b": (36, 0), "minicpm-2b": (40, 0),
                "stablelm-1.6b": (24, 0), "llama2-7b": (32, 0)}
-# selective-scan launches of phase 10 (the pinned runs, the full-width
-# run), one a Mamba2 block a prefill and a decode step (scan_calls):
+# selective-scan kernel runs of phase 10 (the pinned runs, the full-width
+# run), one a Mamba2 block a prefill and a decode step (scan_calls),
+# counted in a device trace (scan_kernel_runs): a decode step that
+# replays a CUDA graph (launch/graphs.py) runs the kernel without a
+# launch through its wrapper, and a capture launches it without a run:
 # zamba2's 6 blocks of ZAMBA2_PERIOD over SERVE_PINNED's 2 batches of a
 # prefill and 3 steps; its 38 blocks over the timed and the recorded
 # generate of a prefill and 7 steps, and the einsum path's prefill; none
@@ -2137,6 +2143,26 @@ def scan_calls(cfg, prefills: int, max_new: int) -> int:
     return cfg.pattern.count("mamba") * prefills * max_new
 
 
+@contextlib.contextmanager
+def scan_kernel_runs(device, on: bool = True):
+    """Count, for the duration, the selective-scan kernel's runs on the
+    device in a ``torch.profiler`` trace, which sees the kernels of a
+    replayed CUDA graph (its wrapper's launch counter sees only the
+    launches that go through it).  Yields a list that holds the count at
+    the end, or None where ``on`` is false or the device is not CUDA."""
+    runs = [None]
+    if not on or torch.device(device).type != "cuda":
+        yield runs
+        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield runs
+        torch.cuda.synchronize()
+    runs[0] = sum(1 for e in prof.profiler.kineto_results.events()
+                  if e.device_type() != DeviceType.CPU
+                  and "selective_scan_kernel" in e.name())
+
+
 def pinned_scan_calls(cfg, arch: str) -> int:
     """Selective-scan launches of :func:`families_pinned`: the serving
     loop's batches at SERVE_PINNED, and the stubbed run for
@@ -2346,7 +2372,10 @@ def families_phase(card: str, records: dict) -> None:
     # (a) pinned: reduced, fp32, the JAX package's token digests
     for arch in FAMILY_ARCHS:
         ops.reset_launch_counts()
-        for run, (tokens, routing) in families_pinned(arch, "cuda").items():
+        with scan_kernel_runs(
+                "cuda", "mamba" in family_config(arch).pattern) as runs:
+            pinned = families_pinned(arch, "cuda")
+        for run, (tokens, routing) in pinned.items():
             digests = token_digests(tokens)
             print(f"pinned {run} (reduced {arch}, fp32): tokens {tokens}; "
                   f"flash_attention launches so far "
@@ -2358,14 +2387,17 @@ def families_phase(card: str, records: dict) -> None:
                     f"{routing['gate_margin']!r}, smallest logit margin "
                     f"{routing['logit_margin']!r}")
         launched = ops.launch_counts()["selective_scan"]
+        ran = launched if runs[0] is None else runs[0]
         want = FAMILIES_SCAN[arch][0]
-        if launched != want or pinned_scan_calls(
+        print(f"pinned {arch}: selective_scan kernel runs {ran} (device "
+              f"trace: {runs[0] is not None}), wrapper launches {launched}")
+        if ran != want or pinned_scan_calls(
                 family_config(arch), arch) != want:
             raise AssertionError(
-                f"pinned {arch}: selective_scan launches {launched}, by the "
+                f"pinned {arch}: selective_scan kernel runs {ran}, by the "
                 f"config {pinned_scan_calls(family_config(arch), arch)}; "
                 f"want {want}")
-        records["selective_scan"]["launches"] += launched
+        records["selective_scan"]["launches"] += ran
     # (b) published widths, bf16, random weights from seed 0
     sizes = FAMILIES_FULL
     for arch in FAMILY_ARCHS:
@@ -2373,7 +2405,9 @@ def families_phase(card: str, records: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = families_full(arch, "cuda", sizes)
+        traced = "mamba" in family_config(arch, full=True).pattern
+        with scan_kernel_runs("cuda", traced) as runs:
+            res = families_full(arch, "cuda", sizes)
         cfg = res["cfg"]
         want = FAMILIES_K6[arch]
         if res["launches"] != want or res["k6_calls"] != want:
@@ -2384,10 +2418,12 @@ def families_phase(card: str, records: dict) -> None:
         if len(res["calls"]) != sum(want):
             raise AssertionError(f"{arch}: the recorded run made "
                                  f"{len(res['calls'])} calls")
-        scans = ops.launch_counts()["selective_scan"]
+        launched = ops.launch_counts()["selective_scan"]
+        scans = launched if runs[0] is None else runs[0]
         want = FAMILIES_SCAN[arch][1]
         if scans != want or res["scan_calls"] != want:
-            raise AssertionError(f"{arch}: selective_scan launches {scans}, "
+            raise AssertionError(f"{arch}: selective_scan kernel runs "
+                                 f"{scans} (wrapper launches {launched}), "
                                  f"by the config {res['scan_calls']}; want "
                                  f"{want}")
         worst, shapes = 0.0, {}
@@ -2429,9 +2465,11 @@ def families_phase(card: str, records: dict) -> None:
               f"peak memory {res['peak_bytes']} B; flash_attention "
               f"launches {res['launches']} (prefill, decode), calls by "
               f"(q shape, Sk, causal) {shapes}, max |kernel - plain| "
-              f"{worst!r}; last-token logits max |kernel path - einsum "
-              f"path| {diff!r} (largest |logit| {scale!r}); MoE pairs "
-              f"dropped by capacity {routing['dropped']} of "
+              f"{worst!r}; selective_scan kernel runs {scans}, wrapper "
+              f"launches {launched} (device trace, so the times are the "
+              f"profiler's: {traced}); last-token logits max |kernel path "
+              f"- einsum path| {diff!r} (largest |logit| {scale!r}); MoE "
+              f"pairs dropped by capacity {routing['dropped']} of "
               f"{routing['pairs']} (share {routing['dropped_share']!r}); "
               f"tokens {res['tokens']} (the recorded run's equal: "
               f"{res['again_tokens'] == res['tokens']}); in "
@@ -2440,7 +2478,8 @@ def families_phase(card: str, records: dict) -> None:
         records["selective_scan"]["launches"] += scans
         del res
     print(f"families phase in {time.perf_counter() - t_phase:.3f} s; "
-          f"selective_scan launches {records['selective_scan']['launches']}")
+          f"selective_scan kernel runs "
+          f"{records['selective_scan']['launches']}")
 
 
 def moe_layer(cfg, device, dtype, seed: int = 0):
@@ -3237,6 +3276,17 @@ def main() -> int:
                 raise AssertionError(f"selective_scan {[b, s_, di, n]}: "
                                      f"max |kernel - plain| / max |plain| "
                                      f"{rel!r}")
+            # as serving calls it: the last state written over h0 itself
+            own = h0.clone()
+            in_place = ops.selective_scan(*operands[:5], own, h_out=own)
+            torch.cuda.synchronize()
+            rel_own = max(float((g - w).abs().max()) / float(w.abs().max())
+                          for g, w in zip(in_place, want))
+            if in_place[1] is not own or rel_own > SCAN_TOL:
+                raise AssertionError(f"selective_scan {[b, s_, di, n]} "
+                                     f"over h0 in place: max |kernel - "
+                                     f"plain| / max |plain| {rel_own!r}")
+            del own, in_place
             ms = time_ms(lambda: ops.selective_scan(*operands), 20,
                          clock_hz)
             plain_ms = time_ms(lambda: scan.selective_scan_plain(
@@ -3252,8 +3302,8 @@ def main() -> int:
               f"plain {plain_ms:.6f} ms  library null  bound "
               f"{bound_ms:.6f} ms ({bound_by}; bytes {bytes_ms:.6f}: "
               f"{nbytes} B, ops {ops_ms:.6f}: {flops} flops)  "
-              f"max_abs_err {err!r} (relative {rel!r})  [{card}]",
-              flush=True)
+              f"max_abs_err {err!r} (relative {rel!r}; over h0 in place "
+              f"{rel_own!r})  [{card}]", flush=True)
         if s_ > 1:
             records["selective_scan"] = {
                 "name": "selective_scan", "route": "cuda",

@@ -12,6 +12,10 @@
 //   y[b,t,c] = sum_n h[n] * C[b,t,n]
 //
 // from h0 [B, di, N]; y [B, S, di] and the last h [B, di, N] are written.
+// h may be h0 itself (a decode step's state updated in place): a thread
+// reads its channel's N states of h0 before its first step and writes the
+// same N words of h after its last, and no other thread touches them, so
+// neither pointer is __restrict__.
 // The decay is expf (not __expf); h takes one fma a state and step
 // (h * decay exact, plus the rounded (dt u) B), and y sums over n in four
 // interleaved partial sums: the two differences from the reference's
@@ -80,8 +84,8 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ bm,
                           const float* __restrict__ cm,
                           const float* __restrict__ a,
-                          const float* __restrict__ h0,
-                          float* __restrict__ y, float* __restrict__ h_out,
+                          const float* h0, float* __restrict__ y,
+                          float* h_out,
                           long long steps, long long di, long long b_bs,
                           long long b_ts, long long c_bs, long long c_ts) {
   static_assert(N % 4 == 0, "N is read as float4");
@@ -198,7 +202,7 @@ extern "C" {
 
 // dt, u [batch, steps, di] and y contiguous; B, C [batch, steps, n] with
 // strides (b_bs, b_ts, 1) and (c_bs, c_ts, 1) in elements; a [di]; h0 and
-// h [batch, di, n] contiguous.  n is 16, 32 or 64.
+// h [batch, di, n] contiguous, h possibly h0.  n is 16, 32 or 64.
 int ndp_selective_scan_f32(const void* dt, const void* u, const void* bm,
                            const void* cm, const void* a, const void* h0,
                            void* y, void* h, long long batch,

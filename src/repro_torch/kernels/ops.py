@@ -19,7 +19,7 @@ other.  ``selective_scan`` has no counterpart in the JAX package's
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import math
 
@@ -185,11 +185,14 @@ def flash_attention_takes(dh: int, dv: int, dtype: torch.dtype,
 
 
 def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,
-                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                   h_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2's selective scan over every step: ``h = h exp(dt a) + (dt u)
     B`` and ``y = sum_n h C`` a step, from ``h0``; returns ``(y [B, S,
-    di], h [B, di, N])``, all fp32.
+    di], h [B, di, N])``, all fp32.  With ``h_out`` (``h0``'s shape,
+    contiguous; ``h0`` itself for a state updated in place) the last state
+    is written there and ``h`` is ``h_out``.
 
     Forward only, as K6: a call that autograd would record raises
     ``RuntimeError`` on every device.  Training scans through the loop of
@@ -216,9 +219,17 @@ def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,
             "selective_scan: the kernel has no backward; call it under "
             "torch.no_grad() or on tensors that do not require grad, and "
             "train through the loop of models/ssm.py mamba_apply")
+    if h_out is not None and (h_out.shape != h0.shape
+                              or h_out.dtype != torch.float32
+                              or h_out.device != h0.device):
+        raise ValueError(f"selective_scan: h_out {tuple(h_out.shape)} "
+                         f"{h_out.dtype} on {h_out.device}, expected h0's")
     if dt.is_cuda:
-        return _scan.selective_scan(*operands)
-    return _scan.selective_scan_plain(*operands)
+        return _scan.selective_scan(*operands, h_out=h_out)
+    y, h = _scan.selective_scan_plain(*operands)
+    if h_out is None:
+        return y, h
+    return y, h_out.copy_(h)
 
 
 def launch_counts() -> Dict[str, int]:

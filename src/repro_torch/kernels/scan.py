@@ -14,7 +14,9 @@ such loop for Mamba2, which trains through it.
 Operands, all fp32: ``dt``, ``u`` [B, S, di]; ``bmat``, ``cmat`` [B, S, N]
 (any batch and step stride, the last stride 1: a view of the fused
 projection is read in place); ``a`` [di]; ``h0`` [B, di, N].  Returns
-fresh ``y`` [B, S, di] and the last state ``h`` [B, di, N].
+fresh ``y`` [B, S, di] and the last state ``h`` [B, di, N], written into
+``h_out`` where one is given (which may be ``h0``: a decode step's state
+updated in place).
 
 ``LAUNCHES`` counts kernel launches.
 """
@@ -32,9 +34,11 @@ LAUNCHES = 0
 
 
 def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,
-                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                   h_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan on the card: one launch of ``csrc/scan.cu``."""
+    """The scan on the card: one launch of ``csrc/scan.cu``; the last
+    state into ``h_out`` (contiguous, 16-byte aligned) where given."""
     global LAUNCHES
     if not all(t.is_cuda for t in (dt, u, bmat, cmat, a, h0)):
         raise ValueError("selective_scan: expected CUDA tensors")
@@ -48,10 +52,16 @@ def selective_scan(dt: torch.Tensor, u: torch.Tensor, bmat: torch.Tensor,
     dt, u, a, h0 = (t.contiguous() for t in (dt, u, a, h0))
     bmat, cmat = (t if t.stride(2) == 1 else t.contiguous()
                   for t in (bmat, cmat))
+    if h_out is None:
+        h = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
+    elif not h_out.is_contiguous() or h_out.data_ptr() % 16:
+        raise ValueError("selective_scan: h_out must be contiguous and "
+                         "16-byte aligned")
+    else:
+        h = h_out
     if h0.data_ptr() % 16:
         h0 = h0.clone()
     y = torch.empty_like(dt)
-    h = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
     _build.call("ndp_selective_scan_f32", dt.data_ptr(), u.data_ptr(),
                 bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
                 h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, di, n,

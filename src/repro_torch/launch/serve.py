@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import configs, spans
 from repro_torch.device import resolve_device
+from repro_torch.launch import graphs
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
@@ -97,7 +98,8 @@ def _serve_batch(cfg: ArchConfig, params: M.Params, active: List[Request],
     tokens = torch.from_numpy(np.stack([r.prompt for r in active])).to(
         device=device, dtype=torch.int64)
     with spans.span("serve.cache_init"):
-        caches = M.init_cache(cfg, len(active), max_seq, device)
+        caches = graphs.init_cache(cfg, params, len(active), max_seq,
+                                   device)
     with spans.span("model.prefill"):
         logits, caches = prefill_fn(params, caches, {"tokens": tokens})
         nxt = torch.argmax(logits[:, -1], dim=-1)

@@ -390,13 +390,17 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     flash-attention kernel (serving) or the einsum path (training, which
     needs a backward).
 
-    ``cache``: {"k","v" [B,Smax,Hkv,dh], "index" int} — the new keys and
-    values are written into the cache tensors in place (where JAX returns
-    updated copies) at ``index``; the returned cache holds the same tensors
-    and ``index + S``.  A prompt written at index 0 attends over its own
-    keys through the kernel, which equals the JAX package's softmax over
-    all cache slots (the empty ones weigh exactly 0); any other step
-    (decode) takes the masked product over the cache, as in JAX.
+    ``cache``: {"k","v" [B,Smax,Hkv,dh], "index" int or 0-d int64 tensor
+    on the cache's device} — the new keys and values are written into the
+    cache tensors in place (where JAX returns updated copies) at
+    ``index``; the returned cache holds the same tensors and ``index +
+    S``.  A prompt written at index 0 attends over its own keys through
+    the kernel, which equals the JAX package's softmax over all cache
+    slots (the empty ones weigh exactly 0); any other step (decode) takes
+    the masked product over the cache, as in JAX.  That choice tests
+    ``S > 1`` before it looks at the index, and a decode step writes and
+    masks at the index on the device: it never reads a tensor index on
+    the host, so a CUDA graph can capture it.
     """
     b, s, _ = x.shape
     dh = cfg.head_dim
@@ -420,13 +424,15 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if cache is not None:
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
-        ck[:, idx:idx + s] = k
-        cv[:, idx:idx + s] = v
         new_cache = {"k": ck, "v": cv, "index": idx + s}
-        if idx == 0 and s > 1:
+        if s > 1 and idx == 0:
+            ck[:, :s] = k
+            cv[:, :s] = v
             out = _sdpa_on_shards(q, _repeat_kv(k, n_rep),
                                   _repeat_kv(v, n_rep), True, flash)
         else:
+            _write_at(ck, idx, k)
+            _write_at(cv, idx, v)
             spec = heads_spec(q, cfg.n_kv_heads)
             out = on_shards(
                 lambda q_, k_, v_: _cached_attention(q_, k_, v_, idx),
@@ -438,6 +444,18 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return merge_heads(out) @ p["wo"], new_cache
 
 
+def _write_at(cache: torch.Tensor, idx, new: torch.Tensor) -> None:
+    """``cache[:, idx:idx + S] = new`` with ``idx`` an int or a 0-d tensor
+    that stays on the device (``index_copy_``).  On DTensors (the dry-run's
+    plans, an int index) a slice assignment: torch 2.11's DTensor has no
+    sharding rule for ``index_copy_``."""
+    if isinstance(cache, DTensor):
+        cache[:, idx:idx + new.shape[1]] = new
+    else:
+        cache.index_copy_(1, idx + torch.arange(new.shape[1],
+                                                device=cache.device), new)
+
+
 def _sdpa_on_shards(q, k, v, causal: bool, flash: bool):
     """``_sdpa`` on each rank's batch rows and heads (``on_shards``)."""
     spec = heads_spec(q, q.shape[2])
@@ -446,8 +464,9 @@ def _sdpa_on_shards(q, k, v, causal: bool, flash: bool):
 
 
 def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                      idx: int) -> torch.Tensor:
-    """q [B,S,H,dh] at positions ``idx..`` over the whole cache ck, cv
+                      idx) -> torch.Tensor:
+    """q [B,S,H,dh] at positions ``idx..`` (an int or a 0-d tensor on
+    q's device) over the whole cache ck, cv
     [B,Smax,Hkv,dh] under the causal mask: the group dim folded into q, the
     cache read once; products of the working type summed in fp32 (JAX:
     ``preferred_element_type``)."""

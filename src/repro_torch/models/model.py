@@ -34,7 +34,9 @@ The caches are a list with one dict per entry of ``cfg.pattern``: ``{"k",
 "v"}`` (GQA, each ``sattn`` its own), ``{"latent", "k_rope"}`` (MLA), or
 the recurrent state of a Mamba2/xLSTM block.  Prefill and decode write
 keys and values into the given tensors in place (JAX returns updated
-copies) and put each block's new recurrent state into the list.
+copies) and put each block's new recurrent state into the list; where
+Mamba2 scans through ``ops.selective_scan`` (serving), its new state
+lands on the given tensors.
 """
 from __future__ import annotations
 
@@ -428,14 +430,17 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, caches,
 
 
 def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
-                index: int, caches, enc_out: Optional[torch.Tensor] = None):
-    """One decode step: ``token`` [B] at position ``index``; returns
-    (logits [B, V], caches).  An M-RoPE config rotates by ``index`` in all
-    three position streams."""
+                index, caches, enc_out: Optional[torch.Tensor] = None):
+    """One decode step: ``token`` [B] at position ``index``, an ``int``
+    or a 0-d int64 tensor on the step's device (one code path, the same
+    numbers); returns (logits [B, V], caches).  Without MLA, a tensor
+    index is never read on the host, so that a CUDA graph of the step
+    replays at any position.  An M-RoPE config rotates by ``index`` in
+    all three position streams."""
     x = embed(cfg, params, token[:, None])
     b = x.shape[0]
-    positions = torch.full((b, 1), index, dtype=torch.int64,
-                           device=x.device)
+    positions = torch.zeros((b, 1), dtype=torch.int64,
+                            device=x.device) + index
     pos3 = positions.expand(3, b, 1) if cfg.mrope else None
     h, caches = forward(cfg, params, x, positions, caches=caches,
                         index=index, pos3=pos3, enc_out=enc_out)

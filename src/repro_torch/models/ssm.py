@@ -61,6 +61,11 @@ def scan_steps(limit: Optional[int]) -> Iterator[None]:
         _SCAN_STEPS["limit"] = saved
 
 
+def scan_limit() -> Optional[int]:
+    """The ``scan_steps`` limit that holds; None: none."""
+    return _SCAN_STEPS["limit"]
+
+
 def _steps(s: int) -> int:
     limit = _SCAN_STEPS["limit"]
     return s if limit is None else min(s, limit)
@@ -130,7 +135,14 @@ def _whole_scan(operands) -> bool:
 def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 state: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """Selective SSM.  state = {"h" [B,di,N] fp32, "conv" [B,K-1,di]}."""
+    """Selective SSM.  state = {"h" [B,di,N] fp32, "conv" [B,K-1,di]}.
+
+    A call from a given state through ``ops.selective_scan`` (serving's
+    prefill and decode steps) writes the new state over the given
+    tensors and returns them, so that a cache keeps its buffers from
+    prefill through every decode step (a CUDA graph of the step replays
+    on them); the loop (training, a ``scan_steps`` limit, DTensors)
+    returns fresh ones."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     n = cfg.ssm_state
@@ -153,10 +165,14 @@ def mamba_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     u32 = shard_tokens(u.float())
     operands = (dt, u32, bmat, cmat, a, h)
     whole = _whole_scan(operands)
+    in_place = whole and state is not None
+    if in_place:
+        conv_state = state["conv"].copy_(conv_state)
     steps = _steps(s)
     with spans.span("ssm.scan"):
         if whole:
-            y32, h = ops.selective_scan(*operands)
+            y32, h = ops.selective_scan(*operands,
+                                        h_out=h if in_place else None)
         else:
             y32, h = selective_scan_plain(*operands, steps=steps)
     spans.count("ssm.scan_steps", steps)

@@ -3,7 +3,8 @@
 The serving loop (``launch/serve.py``), the model's cache path
 (``models/model.py``), the time scans (``models/ssm.py``), the cached
 attention, MLA and the MoE layer (``models/layers.py``) mark where the
-host is:
+host is, and the decode step's CUDA graph (``launch/graphs.py``) counts
+its replays and captures:
 
 * a span is a named interval of the host's clock with an id, its
   parent's id, the serving batch it belongs to and, for a block, its
@@ -183,6 +184,20 @@ def recording() -> Iterator[Recorder]:
         yield _recorder
     finally:
         _recorder = None
+
+
+@contextlib.contextmanager
+def private() -> Iterator[Recorder]:
+    """Records into a recording of its own until the block ends, whatever
+    records around it: the recording around sees nothing of the block and
+    goes on after it (a CUDA graph's capture reads what one step
+    counts)."""
+    global _recorder
+    outer, _recorder = _recorder, Recorder()
+    try:
+        yield _recorder
+    finally:
+        _recorder = outer
 
 
 class _Profiled:

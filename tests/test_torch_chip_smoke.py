@@ -351,9 +351,9 @@ def test_scan_calls_count_the_kernel_path_on_the_cpu(run, monkeypatch):
     calls = []
     kernel = ops.selective_scan
 
-    def counted(*operands):
+    def counted(*operands, **kwargs):
         calls.append(operands[0].shape)
-        return kernel(*operands)
+        return kernel(*operands, **kwargs)
 
     monkeypatch.setattr(ops, "selective_scan", counted)
     arch = "zamba2-1.2b"

@@ -212,8 +212,11 @@ def test_plain_selective_scan_equals_the_loop_bit_for_bit(s):
     state_t = {k: torch.from_numpy(v) for k, v in state.items()}
     before = ops.launch_counts()
     with torch.no_grad():
-        got, got_state = S.mamba_apply(p_t, pr.cfg_t, torch.from_numpy(x),
-                                       state_t)
+        # a call through ops.selective_scan writes its state over the
+        # given one
+        got, got_state = S.mamba_apply(
+            p_t, pr.cfg_t, torch.from_numpy(x),
+            {k: v.clone() for k, v in state_t.items()})
     p_grad = {k: v.clone().requires_grad_() for k, v in p_t.items()}
     with spans.recording() as rec:
         want, want_state = S.mamba_apply(p_grad, pr.cfg_t,
