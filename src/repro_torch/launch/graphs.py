@@ -2,14 +2,10 @@
 
 An eager decode step of the port is about two thousand small launches
 from Python (zamba2-1.2b at 32 x 1149: 1,983), and the card waits for the
-host between them.  The step function of :mod:`repro_torch.launch.steps`
-(``build_serve_step``) replays a CUDA graph of ``models/model.py``
-``decode_step`` instead where :func:`engages` holds: on a CUDA device,
-every block of the pattern ``attn``, ``sattn`` or ``mamba``, no MLA, no
-mesh bound and no ``scan_steps`` limit.  Those steps read no host value:
-the position is a 0-d int64 tensor on the card, the GQA caches are
-written at it on the card, and Mamba2's new state lands on the old one.
-Every other step runs eagerly, as does every step on the CPU.
+host between them.  :func:`decode`, the serving step, replays a CUDA
+graph of ``models/model.py`` ``decode_step`` instead on a CUDA device
+where ``decode_capturable`` holds (``decode_step``'s docstring gives the
+conditions); every other step runs eagerly, as on the CPU.
 
 One graph is held in the process at a time.  It is made at the first
 step on caches that it does not hold, and those caches become its
@@ -25,10 +21,10 @@ graph's buffers, zeroed, where the batch fits the graph, so one capture
 serves every batch of a shape.  The graph reads the parameters where
 they lie; it holds them weakly and goes when they do.
 
-Counters (:mod:`repro_torch.spans`), while spans record: an eager step
-counts ``graph.replays`` 0 beside what its code counts; a replay adds
-what the captured step counted (``attn.cast_bytes``, ``ssm.scan_steps``,
-``ssm.scan_kernel_steps``) and ``graph.replays`` 1; a capture counts
+Counters (:mod:`repro_torch.spans`), while spans record: a step counts
+``graph.replays``, 1 a replay and 0 an eager step, beside what its code
+counts; a replay adds what the captured step counted (``attn.cast_bytes``,
+``ssm.scan_steps``, ``ssm.scan_kernel_steps``); a capture counts
 ``graph.captures`` 1.  A replayed step has no ``block.*``, ``ssm.scan``
 or ``model.head`` spans: its host runs none of that code.  The kernels'
 launch counters (``ops.launch_counts``) count the wrappers' launches, the
@@ -45,27 +41,17 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import spans
-from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
 
-# the block kinds whose decode step a graph captures
-KINDS = ("attn", "sattn", "mamba")
 WARMUP_STEPS = 3
 
 
 def engages(cfg: ArchConfig, device: torch.device | str) -> bool:
     """Whether the serving decode step of ``cfg`` on ``device`` replays a
-    graph: a CUDA device, only ``KINDS`` in the pattern, no MLA (its
-    decode reads the index on the host), no mesh bound, and no
-    ``scan_steps`` limit (under one Mamba2 scans through its loop, which
-    returns fresh states)."""
+    graph: a CUDA device and ``M.decode_capturable``."""
     return (torch.device(device).type == "cuda"
-            and all(kind in KINDS for kind in cfg.pattern)
-            and not cfg.mla
-            and not L.data_axes() and L.model_axis() is None
-            and S.scan_limit() is None)
+            and M.decode_capturable(cfg))
 
 
 def _max_seq(caches) -> Optional[int]:
@@ -139,7 +125,6 @@ class DecodeGraph:
         self.index.fill_(index)
         if self.graph is None and self.eager_steps < WARMUP_STEPS:
             self.eager_steps += 1
-            spans.count("graph.replays", 0)
             return self._step(params), [dict(c) for c in self.caches]
         if self.graph is None:
             self._capture(params)
@@ -147,7 +132,6 @@ class DecodeGraph:
         if spans.on():
             for name, n in self.counts.items():
                 spans.count(name, n)
-            spans.count("graph.replays", 1)
         return self.logits.clone(), [dict(c) for c in self.caches]
 
 
@@ -178,11 +162,20 @@ def init_cache(cfg: ArchConfig, params: M.Params, batch: int, max_seq: int,
 
 
 def decode(cfg: ArchConfig, params: M.Params, caches, token: torch.Tensor,
-           index):
-    """``decode_step`` through the held graph, made anew where the step is
-    not the held graph's; returns (logits, caches)."""
-    graph = _HELD[0]
-    if graph is None or not graph.serves(cfg, params, caches):
-        _release()
-        graph = _HELD[0] = DecodeGraph(cfg, params, caches, token)
-    return graph(params, token, index)
+           index, enc_out: Optional[torch.Tensor] = None):
+    """One serving decode step; returns (logits, caches).  Where
+    :func:`engages` holds, through the held graph, made anew where the
+    step is not the held graph's; else ``decode_step``, eagerly."""
+    replayed = 0
+    if engages(cfg, token.device):
+        graph = _HELD[0]
+        if graph is None or not graph.serves(cfg, params, caches):
+            _release()
+            graph = _HELD[0] = DecodeGraph(cfg, params, caches, token)
+        out = graph(params, token, index)
+        replayed = int(graph.graph is not None)
+    else:
+        out = M.decode_step(cfg, params, token, index, caches,
+                            enc_out=enc_out)
+    spans.count("graph.replays", replayed)
+    return out

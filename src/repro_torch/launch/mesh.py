@@ -69,10 +69,5 @@ def mesh_axes(mesh: DeviceMesh) -> Tuple[Tuple[str, ...], Optional[str]]:
     return data, model
 
 
-def mesh_shape(mesh: DeviceMesh) -> dict:
-    """{axis name: extent}, as ``jax.sharding.Mesh.shape``."""
-    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
-
-
 def chips(mesh: DeviceMesh) -> int:
     return mesh.size()

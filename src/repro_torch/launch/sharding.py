@@ -10,8 +10,8 @@ sequence dimension instead).
 
 A spec is a tuple with one entry per tensor dim, as a ``PartitionSpec``:
 ``None`` (replicated), an axis name, or a tuple of axis names (the dim
-split over each in turn, the first outermost).  :func:`placements` turns
-it into DTensor placements, one per mesh dim.
+split over each in turn, the first outermost).  ``models/layers.py``
+``placements`` turns it into DTensor placements, one per mesh dim.
 
 The port keeps one dict per layer where the JAX package stacks its
 segments on a leading layer axis.  A parameter rule indexes dims from the
@@ -21,14 +21,14 @@ front, and here read one dim lower (``[B, ...]``).
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 
-from repro_torch.launch.mesh import mesh_axes, mesh_shape
+from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models.layers import axis_size, fit_spec, placements
 
 Spec = Tuple[Any, ...]
 Path = Tuple[Any, ...]
@@ -39,27 +39,6 @@ _COL = {"wq", "wk", "wv", "w1", "w3", "w_uq", "w_uk", "w_uv", "w_q",
         "w_dq", "router"}
 # row-parallel leaves (shard -2 over "model", last over data/FSDP)
 _ROW = {"wo", "w2", "w_out"}
-
-
-def _axis_size(mesh: DeviceMesh, entry) -> int:
-    if entry is None:
-        return 1
-    sizes = mesh_shape(mesh)
-    if isinstance(entry, tuple):
-        return math.prod(sizes[e] for e in entry)
-    return sizes[entry]
-
-
-def _fit(mesh: DeviceMesh, shape: Sequence[int], spec_entries) -> Spec:
-    """Drop axis assignments whose mesh extent does not divide the dim."""
-    out = []
-    for dim, entry in zip(shape, spec_entries):
-        if entry is None:
-            out.append(None)
-            continue
-        size = _axis_size(mesh, entry)
-        out.append(entry if dim % size == 0 else None)
-    return tuple(out)
 
 
 def _leaf_name(path: Path) -> str:
@@ -78,30 +57,31 @@ def param_spec_for(path: Path, shape: Sequence[int], mesh: DeviceMesh,
         if name == "emb":   # [V, D] -> feature dim over (data, model)
             combined = tuple(a for a in (data + ((model,) if model else ()))
                              if a)
-            return _fit(mesh, shape, [None, combined or None])
-        return _fit(mesh, shape, [tuple(data + ((model,) if model else ())) or
-                                  None, None])
+            return fit_spec(mesh, shape, [None, combined or None])
+        return fit_spec(mesh, shape,
+                        [tuple(data + ((model,) if model else ())) or None,
+                         None])
     if "experts" in path and nd >= 3:
         # [E, D, F] / [E, F, D]: expert-parallel over model, FSDP over the
         # contraction dim.
         spec = [None] * nd
         spec[nd - 3] = model
         spec[nd - 2] = dataspec
-        return _fit(mesh, shape, spec)
+        return fit_spec(mesh, shape, spec)
     if name in _COL and nd >= 2:
         spec = [None] * nd
         spec[nd - 1] = model
         spec[nd - 2] = dataspec
-        return _fit(mesh, shape, spec)
+        return fit_spec(mesh, shape, spec)
     if name in _ROW and nd >= 2:
         spec = [None] * nd
         spec[nd - 1] = dataspec
         spec[nd - 2] = model
-        return _fit(mesh, shape, spec)
+        return fit_spec(mesh, shape, spec)
     if name in ("conv_w", "a_log", "d_skip") and nd >= 1:
         spec = [None] * nd
         spec[nd - 1] = model
-        return _fit(mesh, shape, spec)
+        return fit_spec(mesh, shape, spec)
     return (None,) * nd   # norms and other small leaves: replicated
 
 
@@ -128,20 +108,20 @@ def cache_spec_for(path: Path, shape: Sequence[int], mesh: DeviceMesh,
         spec[0] = dataspec
     elif nd >= 1:
         spec[0] = dataspec
-    return _fit(mesh, shape, spec)
+    return fit_spec(mesh, shape, spec)
 
 
 def batch_spec(shape: Sequence[int], mesh: DeviceMesh) -> Spec:
     """Token batches: batch dim over (pod, data)."""
     data, _ = mesh_axes(mesh)
     spec = [data if data else None] + [None] * (len(shape) - 1)
-    return _fit(mesh, shape, spec)
+    return fit_spec(mesh, shape, spec)
 
 
 def embeds_spec(shape: Sequence[int], mesh: DeviceMesh) -> Spec:
     data, model = mesh_axes(mesh)
     spec = [data if data else None] + [None] * (len(shape) - 2) + [model]
-    return _fit(mesh, shape, spec)
+    return fit_spec(mesh, shape, spec)
 
 
 def map_with_path(fn: Callable[[Path, Any], Any], tree, path: Path = ()):
@@ -175,22 +155,10 @@ def cache_specs(caches, mesh: DeviceMesh):
                                           model), caches)
 
 
-def placements(spec: Spec, mesh: DeviceMesh) -> tuple:
-    """DTensor placements of ``spec``: for each mesh dim, ``Shard(d)`` of
-    the tensor dim ``d`` whose entry names it, else ``Replicate()``."""
-    out = []
-    for axis in mesh.mesh_dim_names:
-        dims = [d for d, entry in enumerate(spec)
-                if entry == axis or (isinstance(entry, tuple)
-                                     and axis in entry)]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
-
-
 def local_shape(shape: Sequence[int], spec: Spec,
                 mesh: DeviceMesh) -> Tuple[int, ...]:
     """Each rank's shard of a ``shape`` tensor under a fitted ``spec``."""
-    return tuple(dim // _axis_size(mesh, entry)
+    return tuple(dim // axis_size(mesh, entry)
                  for dim, entry in zip(shape, tuple(spec) + (None,) * (
                      len(shape) - len(spec))))
 

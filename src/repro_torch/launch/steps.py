@@ -11,12 +11,12 @@ encoder-decoder) beside ``tokens`` and ``labels``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch import spans
 from repro_torch.launch import graphs
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
@@ -135,18 +135,9 @@ def build_prefill_step(cfg: ArchConfig, flash: bool = True) -> Callable:
 def build_serve_step(cfg: ArchConfig) -> Callable:
     """One decode step: new token against a filled cache at ``index``,
     cross-attending to ``enc_out`` when given; returns (logits, the caches
-    for the next step).  Where ``graphs.engages`` (a CUDA device, only
-    ``attn``, ``sattn`` and ``mamba`` blocks, no MLA, no mesh), the step
-    goes through the process's CUDA graph of ``decode_step``
-    (:mod:`repro_torch.launch.graphs`: a few eager steps on new caches,
-    then replays), else it runs eagerly and counts
-    ``graph.replays`` 0, so that a reader tells a step that bypasses the
-    graph from a program without one."""
-    def serve_step(params, caches, token, index,
-                   enc_out: Optional[torch.Tensor] = None):
-        if graphs.engages(cfg, token.device):
-            return graphs.decode(cfg, params, caches, token, index)
-        spans.count("graph.replays", 0)
-        return M.decode_step(cfg, params, token, index, caches,
-                             enc_out=enc_out)
-    return serve_step
+    for the next step).  The step is :func:`repro_torch.launch.graphs.decode`:
+    a replay of the process's CUDA graph of ``decode_step`` where
+    ``graphs.engages``, else the eager step; it counts ``graph.replays``,
+    so that a reader tells a step that bypasses the graph from a program
+    without one."""
+    return functools.partial(graphs.decode, cfg)

@@ -18,23 +18,26 @@ takes the reference's expert-parallel path (``_moe_routed_sharded``: each
 rank runs ``_moe_dispatch_local`` on its tokens and its experts, then one
 all-reduce over the model axis); on plain tensors, its single-device path.
 
-Attention over a whole sequence (``_sdpa``) takes one of two paths, chosen
-by the caller's ``flash`` argument.  Serving (``flash=True``) goes through
-the hand-written flash-attention kernel
+Attention outside the kernel keeps the JAX package's numbers, written
+once: each site sums its scores of the working type's operands in fp32
+(cast to fp32: bf16 products are exact there), then -1e30 under the
+causal mask, an fp32 softmax (``_softmax``), and the probabilities cast
+to the working type for the product with v, summed in fp32 (``_attend``;
+the absorbed MLA decode multiplies them by the latent in the working
+type).  Over a whole sequence (``_sdpa``) the caller's ``flash`` chooses:
+serving goes through the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention`, the JAX package's K6),
 which the JAX package's docstring names as the replacement of its chunked
-einsum path on real hardware.  In fp32 the two agree to rounding.  In bf16
-the kernel rounds the probabilities to bf16 for the product with v, as the
-JAX einsum path casts them to the working type, but normalises by the sum
-of the rounded weights where that path normalises first: the two agree
-within the bf16 tolerance of ``kernels/ref.py``.  Training
-(``flash=False``) takes the JAX package's own chunked einsum path
-(``SDPA_CHUNK``, ``_sdpa_block``): K6 has no backward there either, and
-refuses autograd here.  MLA never reaches ``_sdpa`` in the reference (its
-q·k width, dh + ``rope_head_dim``, is not v's); here a served prompt goes
-through the kernel where it is built for MLA's pair of widths (bf16 at
-192 and 128), and MLA otherwise keeps the reference's masked einsum
-product (``mla_attention``).
+einsum path on real hardware.  In fp32 the two agree to rounding; in bf16
+the kernel also rounds the probabilities to bf16, but normalises by the
+sum of the rounded weights where the einsum path normalises first: the
+two agree within the bf16 tolerance of ``kernels/ref.py``.  Training
+(``flash=False``) takes the einsum path in q-row blocks (``_q_blocks``):
+K6 has no backward there either, and refuses autograd here.  MLA never
+reaches ``_sdpa`` in the reference (its q·k width, dh + ``rope_head_dim``,
+is not v's); here a served prompt goes through the kernel where it is
+built for MLA's pair of widths (bf16 at 192 and 128), and MLA otherwise
+keeps the reference's masked einsum product (``mla_attention``).
 
 DeepSeek-V2's own routing (``group_limited_route``) and the share of an
 expert-parallel layer that one device computes (``moe_held_apply``) serve
@@ -49,12 +52,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import spans
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import mesh_shape
-from repro_torch.launch.sharding import _fit, placements
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
@@ -78,13 +80,52 @@ def model_axis() -> Optional[str]:
     return _MESH_AXES["model"]
 
 
+def mesh_shape(mesh: DeviceMesh) -> dict:
+    """{axis name: extent}, as ``jax.sharding.Mesh.shape``."""
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def axis_size(mesh: DeviceMesh, entry) -> int:
+    if entry is None:
+        return 1
+    sizes = mesh_shape(mesh)
+    if isinstance(entry, tuple):
+        return math.prod(sizes[e] for e in entry)
+    return sizes[entry]
+
+
+def fit_spec(mesh: DeviceMesh, shape, spec_entries) -> tuple:
+    """Drop axis assignments whose mesh extent does not divide the dim."""
+    out = []
+    for dim, entry in zip(shape, spec_entries):
+        if entry is None:
+            out.append(None)
+            continue
+        size = axis_size(mesh, entry)
+        out.append(entry if dim % size == 0 else None)
+    return tuple(out)
+
+
+def placements(spec, mesh: DeviceMesh) -> tuple:
+    """DTensor placements of ``spec``: for each mesh dim, ``Shard(d)`` of
+    the tensor dim ``d`` whose entry names it, else ``Replicate()``."""
+    out = []
+    for axis in mesh.mesh_dim_names:
+        dims = [d for d, entry in enumerate(spec)
+                if entry == axis or (isinstance(entry, tuple)
+                                     and axis in entry)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
 def _maybe_shard(x: torch.Tensor, spec) -> torch.Tensor:
     """Sharding hint: ``x`` redistributed to ``spec`` (axis assignments
     that do not divide their dim dropped) if it is a DTensor, else ``x``."""
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
-    return x.redistribute(mesh, placements(_fit(mesh, x.shape, spec), mesh))
+    return x.redistribute(mesh, placements(fit_spec(mesh, x.shape, spec),
+                                           mesh))
 
 
 def shard_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -134,10 +175,10 @@ def on_shards(fn, tensors, specs, out_spec, out_shape=None):
         return fn(*tensors)
     mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
     local = [_ContiguousGrad.apply(t.redistribute(
-        mesh, placements(_fit(mesh, t.shape, spec), mesh)).to_local())
+        mesh, placements(fit_spec(mesh, t.shape, spec), mesh)).to_local())
              for t, spec in zip(tensors, specs)]
-    out_pl = placements(_fit(mesh, out_shape or tensors[0].shape, out_spec),
-                        mesh)
+    out_pl = placements(fit_spec(mesh, out_shape or tensors[0].shape,
+                                 out_spec), mesh)
     return DTensor.from_local(fn(*local), mesh, out_pl, run_check=False)
 
 
@@ -148,7 +189,7 @@ def heads_spec(x: torch.Tensor, groups: int) -> tuple:
     model = model_axis()
     if isinstance(x, DTensor) and model:
         mesh = x.device_mesh
-        model = _fit(mesh, (groups,), (model,))[0]
+        model = fit_spec(mesh, (groups,), (model,))[0]
     return (data_axes() or None, None, model, None)
 
 
@@ -327,25 +368,52 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 SDPA_CHUNK = 512   # q-block size for chunked attention (long sequences)
 
 
+def _causal_mask(q0, sq: int, sk: int, device) -> torch.Tensor:
+    """``[sq, sk]``: key position <= query position, queries at ``q0..``
+    (an int or a 0-d tensor on ``device``, never read on the host)."""
+    kpos = torch.arange(sk, device=device)[None, :]
+    qpos = q0 + torch.arange(sq, device=device)[:, None]
+    return kpos <= qpos
+
+
+def _softmax(logits: torch.Tensor, mask) -> torch.Tensor:
+    """The fp32 softmax over the last dim of fp32 ``logits``, -1e30 where
+    ``mask`` (if given) is false."""
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    return torch.softmax(logits, dim=-1)
+
+
+def _attend(eq: str, logits: torch.Tensor, mask: Optional[torch.Tensor],
+            v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The product of ``_softmax(logits, mask)``, cast to ``dtype``, with
+    v, by the einsum ``eq``, summed and returned in fp32."""
+    probs = _softmax(logits, mask)
+    return torch.einsum(eq, probs.to(dtype).float(), v.float())
+
+
+def _q_blocks(block, qs) -> torch.Tensor:
+    """``block(*qs, 0)``; queries longer than ``SDPA_CHUNK`` and a multiple
+    of it go in q-row blocks (the JAX package's ``lax.scan``), ``block``
+    given each block's rows of ``qs`` and its first row's offset, so that
+    only [B,H,C,Sk] scores exist at a time."""
+    s = qs[0].shape[1]
+    if s <= SDPA_CHUNK or s % SDPA_CHUNK != 0:
+        return block(*qs, 0)
+    return torch.cat([block(*(q[:, i:i + SDPA_CHUNK] for q in qs), i)
+                      for i in range(0, s, SDPA_CHUNK)], dim=1)
+
+
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, q_offset: int) -> torch.Tensor:
-    """The JAX package's ``_sdpa_block``: scores of the working type's
-    operands summed in fp32 (bf16 products are exact in fp32, so operands
-    cast to fp32 give ``preferred_element_type=float32``'s numbers), -1e30
-    under the mask, an fp32 softmax, the probabilities cast to the working
-    type for the product with v, summed in fp32."""
+    """The JAX package's ``_sdpa_block``: q [B,C,H,dh] at positions
+    ``q_offset..`` over k, v [B,Sk,H,dh]."""
     dh = q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        sq, sk = q.shape[1], k.shape[1]
-        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(sk, device=q.device)[None, :]
-        logits = torch.where(qpos >= kpos, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
-                       v.float())
-    return out.to(q.dtype)
+    mask = (_causal_mask(q_offset, q.shape[1], k.shape[1], q.device)
+            if causal else None)
+    return _attend("bhqk,bkhd->bqhd", logits, mask, v, q.dtype).to(q.dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -354,17 +422,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned top-left.
 
     ``flash``: through the flash-attention kernel, which never forms the
-    [Sq, Sk] scores.  Otherwise the JAX package's einsum path: a sequence
-    longer than ``SDPA_CHUNK`` and a multiple of it goes in q-row blocks
-    (the reference's ``lax.scan``), so that only [B,H,C,Sk] scores exist
-    at a time."""
+    [Sq, Sk] scores.  Otherwise the JAX package's einsum path, in q-row
+    blocks (``_q_blocks``)."""
     b, sq, h, dh = q.shape
     if not flash:
-        if sq <= SDPA_CHUNK or sq % SDPA_CHUNK != 0:
-            return _sdpa_block(q, k, v, causal, 0)
-        return torch.cat([_sdpa_block(q[:, i:i + SDPA_CHUNK], k, v, causal,
-                                      i)
-                          for i in range(0, sq, SDPA_CHUNK)], dim=1)
+        return _q_blocks(
+            lambda q_, i: _sdpa_block(q_, k, v, causal, i), (q,))
     sk = k.shape[1]
 
     def heads(t: torch.Tensor, s: int) -> torch.Tensor:
@@ -398,9 +461,7 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     the kernel, which equals the JAX package's softmax over all cache
     slots (the empty ones weigh exactly 0); any other step (decode) takes
     the masked product over the cache, as in JAX.  That choice tests
-    ``S > 1`` before it looks at the index, and a decode step writes and
-    masks at the index on the device: it never reads a tensor index on
-    the host, so a CUDA graph can capture it.
+    ``S > 1`` before it looks at the index (``model.decode_step``).
     """
     b, s, _ = x.shape
     dh = cfg.head_dim
@@ -425,14 +486,12 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
         new_cache = {"k": ck, "v": cv, "index": idx + s}
+        _write_at(ck, idx, k)
+        _write_at(cv, idx, v)
         if s > 1 and idx == 0:
-            ck[:, :s] = k
-            cv[:, :s] = v
             out = _sdpa_on_shards(q, _repeat_kv(k, n_rep),
                                   _repeat_kv(v, n_rep), True, flash)
         else:
-            _write_at(ck, idx, k)
-            _write_at(cv, idx, v)
             spec = heads_spec(q, cfg.n_kv_heads)
             out = on_shards(
                 lambda q_, k_, v_: _cached_attention(q_, k_, v_, idx),
@@ -445,11 +504,10 @@ def gqa_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _write_at(cache: torch.Tensor, idx, new: torch.Tensor) -> None:
-    """``cache[:, idx:idx + S] = new`` with ``idx`` an int or a 0-d tensor
-    that stays on the device (``index_copy_``).  On DTensors (the dry-run's
-    plans, an int index) a slice assignment: torch 2.11's DTensor has no
-    sharding rule for ``index_copy_``."""
-    if isinstance(cache, DTensor):
+    """``cache[:, idx:idx + S] = new``: a slice copy at an int ``idx`` or
+    on a DTensor (torch 2.11's has no rule for ``index_copy_``), else
+    ``index_copy_`` at a 0-d tensor ``idx``, which stays on the device."""
+    if isinstance(idx, int) or isinstance(cache, DTensor):
         cache[:, idx:idx + new.shape[1]] = new
     else:
         cache.index_copy_(1, idx + torch.arange(new.shape[1],
@@ -466,26 +524,18 @@ def _sdpa_on_shards(q, k, v, causal: bool, flash: bool):
 def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                       idx) -> torch.Tensor:
     """q [B,S,H,dh] at positions ``idx..`` (an int or a 0-d tensor on
-    q's device) over the whole cache ck, cv
-    [B,Smax,Hkv,dh] under the causal mask: the group dim folded into q, the
-    cache read once; products of the working type summed in fp32 (JAX:
-    ``preferred_element_type``)."""
+    q's device) over the whole cache ck, cv [B,Smax,Hkv,dh] under the
+    causal mask: the group dim folded into q, the cache read once."""
     b, s, h, dh = q.shape
     n_kv = ck.shape[2]
     qg = q.reshape(b, s, n_kv, h // n_kv, dh)
-    smax = ck.shape[1]
-    kpos = torch.arange(smax, device=q.device)[None, :]
-    qpos = idx + torch.arange(s, device=q.device)[:, None]
-    mask = kpos <= qpos          # causal over the filled prefix
+    mask = _causal_mask(idx, s, ck.shape[1], q.device)
     if spans.on() and ck.dtype != torch.float32:
         # the fp32 copies of the whole cache ``.float()`` makes below
         spans.count("attn.cast_bytes", (ck.numel() + cv.numel()) * 4)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
                           ck.float()) / math.sqrt(dh)
-    logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(q.dtype).float(),
-                       cv.float())
+    out = _attend("bhrqk,bkhd->bqhrd", logits, mask, cv, q.dtype)
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
@@ -532,10 +582,8 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     up-projects nothing of its length.  Otherwise (no cache, ``flash``
     off, or DTensors) the JAX package's product: keys and values
     up-projected per head from every latent row, attention over every
-    cache slot under the causal mask, and without a cache a sequence
-    longer than ``SDPA_CHUNK`` and a multiple of it in q-row blocks (the
-    reference's ``lax.scan``); scores are products of the working type
-    summed in fp32 (``preferred_element_type``)."""
+    cache slot under the causal mask, and without a cache in q-row
+    blocks (``_q_blocks``)."""
     with spans.span("mla"):
         return _mla_attention(p, cfg, x, positions, cache, flash)
 
@@ -566,8 +614,8 @@ def _mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if cache is not None:
         idx = cache["index"]
         cl, cr = cache["latent"], cache["k_rope"]
-        cl[:, idx:idx + s] = latent
-        cr[:, idx:idx + s] = k_rope[:, :, 0, :]
+        _write_at(cl, idx, latent)
+        _write_at(cr, idx, k_rope[:, :, 0, :])
         new_cache = {"latent": cl, "k_rope": cr, "index": idx + s}
         if not isinstance(x, DTensor) and (
                 idx > 0 or s == 1 or flash and ops.flash_attention_takes(
@@ -605,11 +653,10 @@ def _mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         latent_all = _maybe_shard(latent_all, (data_axes(), None, None))
     k_nope = split_heads(latent_all @ p["w_uk"], h, dh)
     v = split_heads(latent_all @ p["w_uv"], h, dh)
-    chunked = s > SDPA_CHUNK and s % SDPA_CHUNK == 0 and cache is None
     spec = heads_spec(q_nope, h)
     out = on_shards(
-        lambda qn, qr, kn, kr, v_: _mla_scores(qn, qr, kn, kr, v_, q_base,
-                                               chunked, scale),
+        lambda qn, qr, kn, kr, v_: _mla_scores(
+            qn, qr, kn, kr, v_, q_base, cache is not None, scale),
         (q_nope, q_rope, k_nope, k_rope_flat, v),
         (spec, spec, spec, spec[:2] + (None,), spec), spec)
     return merge_heads(out) @ p["wo"], new_cache
@@ -653,11 +700,10 @@ def _mla_absorbed(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
     """q ``[B,S,H,dh]`` (+ rope part ``[B,S,H,rd]``) at positions
     ``idx..`` over the cache's filled slots ``[0, idx + S)`` in the
     absorbed form: ``w_uk`` folded into q (``q_lat = q_nope w_ukᵀ`` per
-    head, ``[B,H,S,r]``), scores ``q_lat·latent + q_rope·k_rope`` as
-    products of the working type summed in fp32 (as K6 and the
-    up-projecting path keep them), the causal mask over the new rows, an
-    fp32 softmax, ``o_lat = p·latent``, and ``w_uv`` applied to ``o_lat``
-    per head; returns ``[B,S,H,dh]`` in q's type."""
+    head, ``[B,H,S,r]``), scores ``q_lat·latent + q_rope·k_rope``, the
+    causal mask over the new rows, ``o_lat = p·latent`` of the working
+    type, and ``w_uv`` applied to ``o_lat`` per head; returns
+    ``[B,S,H,dh]`` in q's type."""
     b, s, h, dh = q_nope.shape
     r, rd = cl.shape[-1], cr.shape[-1]
     n = idx + s
@@ -669,25 +715,21 @@ def _mla_absorbed(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
     scores = (_bmm_f32(q_r, k_r.transpose(1, 2))
               + _bmm_f32(q_lat, lat.transpose(1, 2)))
     lg = scores.view(b, h, s, n) * scale
-    if s > 1:
-        qpos = idx + torch.arange(s, device=lg.device)[:, None]
-        kpos = torch.arange(n, device=lg.device)[None, :]
-        lg = torch.where(kpos <= qpos, lg, -1e30)
-    probs = torch.softmax(lg, dim=-1).to(q_nope.dtype).view(b, h * s, n)
+    mask = _causal_mask(idx, s, n, lg.device) if s > 1 else None
+    probs = _softmax(lg, mask).to(q_nope.dtype).view(b, h * s, n)
     o_lat = torch.bmm(probs, lat).view(b, h, s, r)
     return torch.einsum("bhsr,rhd->bshd", o_lat, p["w_uv"].view(r, h, dh))
 
 
 def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
                 k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor,
-                q_base: int, chunked: bool, scale: float) -> torch.Tensor:
+                q_base: int, cached: bool, scale: float) -> torch.Tensor:
     """MLA's attention of q [B,S,H,dh] (+ its rope part [B,S,H,rd]) at
     positions ``q_base..`` over keys [B,Sk,H,dh] (+ the shared rope key
     [B,Sk,rd]) and values [B,Sk,H,dh] under the causal mask, in q-row
-    blocks of ``SDPA_CHUNK`` when ``chunked``; returns [B,S,H,dh] in q's
+    blocks (``_q_blocks``) unless ``cached``; returns [B,S,H,dh] in q's
     type."""
     dtype = q_nope.dtype
-    s = q_nope.shape[1]
     k_nope, v, k_rope = k_nope.float(), v.float(), k_rope.float()
     sk = k_nope.shape[1]
 
@@ -695,19 +737,11 @@ def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
         lg = (torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope)
               + torch.einsum("bqhd,bkd->bhqk", qr.float(), k_rope)
               ) * scale
-        sq = qn.shape[1]
-        qpos = q_base + offset + torch.arange(sq, device=qn.device)[:, None]
-        kpos = torch.arange(sk, device=qn.device)[None, :]
-        lg = torch.where(qpos >= kpos, lg, -1e30)
-        probs = torch.softmax(lg, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(), v)
+        mask = _causal_mask(q_base + offset, qn.shape[1], sk, qn.device)
+        return _attend("bhqk,bkhd->bqhd", lg, mask, v, dtype)
 
-    if chunked:
-        out = torch.cat([block(q_nope[:, i:i + SDPA_CHUNK],
-                               q_rope[:, i:i + SDPA_CHUNK], i)
-                         for i in range(0, s, SDPA_CHUNK)], dim=1)
-    else:
-        out = block(q_nope, q_rope, 0)
+    qs = (q_nope, q_rope)
+    out = block(*qs, 0) if cached else _q_blocks(block, qs)
     return out.to(dtype)
 
 
@@ -938,9 +972,6 @@ def moe_held_apply(p: Params, cfg: ArchConfig, x: torch.Tensor
         counts.index_add_(0, key, torch.ones_like(key))
         offs = torch.cumsum(counts[:e], 0).to(torch.int32)
         held_sorted = held[order]
-    spans.count("moe.pairs", t * k)
-    if spans.on():
-        spans.count("moe.pairs_held", held.sum())   # read after the rounds
     with spans.span("moe.experts"):
         w = p["experts"]
         xs = xf.index_select(0, order // k)

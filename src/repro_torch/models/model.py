@@ -192,6 +192,11 @@ def _attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                            flash=flash)
 
 
+# the block kinds whose decode step a CUDA graph may capture (``decode_step``;
+# an xLSTM block returns fresh states)
+CAPTURABLE_KINDS = ("attn", "sattn", "mamba")
+
+
 def block_apply(kind: str, cfg: ArchConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
                 pos3: Optional[torch.Tensor] = None,
@@ -433,10 +438,17 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 index, caches, enc_out: Optional[torch.Tensor] = None):
     """One decode step: ``token`` [B] at position ``index``, an ``int``
     or a 0-d int64 tensor on the step's device (one code path, the same
-    numbers); returns (logits [B, V], caches).  Without MLA, a tensor
-    index is never read on the host, so that a CUDA graph of the step
-    replays at any position.  An M-RoPE config rotates by ``index`` in
-    all three position streams."""
+    numbers); returns (logits [B, V], caches).  An M-RoPE config rotates
+    by ``index`` in all three position streams.
+
+    Where :func:`decode_capturable` holds, a step at a tensor index reads
+    no host value and leaves every cache and state in the given tensors,
+    so that a CUDA graph of it replays at any position: every block is of
+    ``CAPTURABLE_KINDS`` (GQA writes its cache at the index on the
+    device, Mamba2 its state over the old one), no MLA (its decode slices
+    the filled cache on the host), no mesh bound (DTensor caches are
+    written by slices), and no ``scan_steps`` limit (Mamba2's loop
+    returns fresh states)."""
     x = embed(cfg, params, token[:, None])
     b = x.shape[0]
     positions = torch.zeros((b, 1), dtype=torch.int64,
@@ -446,3 +458,12 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                         index=index, pos3=pos3, enc_out=enc_out)
     with spans.span("model.head"):
         return logits_of(cfg, params, h)[:, 0], caches
+
+
+def decode_capturable(cfg: ArchConfig) -> bool:
+    """Whether ``decode_step`` of ``cfg`` can be captured as a CUDA graph,
+    on the conditions its docstring states."""
+    return (all(kind in CAPTURABLE_KINDS for kind in cfg.pattern)
+            and not cfg.mla
+            and not L.data_axes() and L.model_axis() is None
+            and S.scan_limit() is None)

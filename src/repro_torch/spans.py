@@ -160,8 +160,7 @@ class Recorder:
 
     def counters(self) -> List[Dict]:
         """Each counter's total in each ``serve.*`` span (``span`` -1:
-        outside every one); a total added as device tensors is read back
-        here."""
+        outside every one)."""
         return [{"span": sid, "name": name, "value": int(value)}
                 for (sid, name), value in self._counts.items()]
 
@@ -282,8 +281,7 @@ def end(sid: Optional[int], t_ns: Optional[int] = None) -> None:
 
 def count(name: str, n) -> None:
     """Adds ``n`` to counter ``name`` in the innermost open ``serve.*``
-    span; ``n`` may be a one-element integer tensor, which stays on its
-    device until the counters are read (no read-back inside the step)."""
+    span."""
     if _recorder is None:
         return
     _recorder.add(name, n)

@@ -174,7 +174,7 @@ def test_a_mamba_prefill_writes_its_state_in_place():
 @pytest.mark.parametrize("arch", configs.ARCHS + configs.PAPER_ARCHS)
 def test_engagement_follows_the_block_kinds(arch):
     cfg = configs.get(arch)
-    kinds_only = set(cfg.pattern) <= set(graphs.KINDS) and not cfg.mla
+    kinds_only = set(cfg.pattern) <= set(M.CAPTURABLE_KINDS) and not cfg.mla
     assert kinds_only == (arch in ENGAGE | {"llama2-7b"})
     assert graphs.engages(cfg, "cuda") == kinds_only
     assert graphs.engages(cfg.reduced(), torch.device("cuda", 0)) == \
@@ -204,27 +204,35 @@ def test_an_eager_step_counts_no_replay():
     assert graphs._HELD[0] is None
 
 
-def test_a_graph_runs_its_first_steps_eagerly_on_the_given_caches():
+def test_a_graph_runs_its_first_steps_eagerly_on_the_given_caches(
+        monkeypatch):
     """Before its capture a graph steps eagerly, bit for bit as the plain
     step, on the caches it was made on, and counts no replay."""
     cfg = reduced("zamba2-1.2b", "float32")
     params = model(cfg)
-    with torch.no_grad():
-        nxt, caches = prefilled(cfg, params)
-        plain = clone(caches)
-        graph = graphs.DecodeGraph(cfg, params, caches, nxt)
-        tok_g = tok_p = nxt
-        with spans.recording() as rec:
-            for step in range(graphs.WARMUP_STEPS):
-                with spans.span("serve.decode_step"):
-                    lg, out = graph(params, tok_g, PROMPT + step)
-                lp, plain = M.decode_step(cfg, params, tok_p, PROMPT + step,
-                                          plain)
-                assert torch.equal(lg, lp)
-                assert graph.serves(cfg, params, out)
-                for c, ref in zip(out, plain):
-                    assert all(torch.equal(c[k], ref[k]) for k in c)
-                tok_g, tok_p = torch.argmax(lg, -1), torch.argmax(lp, -1)
+    monkeypatch.setattr(graphs, "engages", lambda cfg, device: True)
+    graphs._release()
+    try:
+        with torch.no_grad():
+            nxt, caches = prefilled(cfg, params)
+            plain, out = clone(caches), caches
+            tok_g = tok_p = nxt
+            with spans.recording() as rec:
+                for step in range(graphs.WARMUP_STEPS):
+                    with spans.span("serve.decode_step"):
+                        lg, out = graphs.decode(cfg, params, out, tok_g,
+                                                PROMPT + step)
+                    graph = graphs._HELD[0]
+                    lp, plain = M.decode_step(cfg, params, tok_p,
+                                              PROMPT + step, plain)
+                    assert torch.equal(lg, lp)
+                    assert graph.serves(cfg, params, out)
+                    assert graph.serves(cfg, params, caches)
+                    for c, ref in zip(out, plain):
+                        assert all(torch.equal(c[k], ref[k]) for k in c)
+                    tok_g, tok_p = torch.argmax(lg, -1), torch.argmax(lp, -1)
+    finally:
+        graphs._release()
     assert graph.graph is None and graph.eager_steps == graphs.WARMUP_STEPS
     assert [c["value"] for c in rec.counters()
             if c["name"].startswith("graph.")] == \

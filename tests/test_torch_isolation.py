@@ -65,6 +65,27 @@ def test_no_jax_or_repro_import_in_source(path):
     _assert_no_jax_or_repro_import(path)
 
 
+def test_models_and_kernels_import_nothing_of_the_launcher():
+    """The launcher builds on the model and the kernels, never the other
+    way round: no module under ``models/`` or ``kernels/`` imports
+    ``repro_torch.launch``."""
+    bad = []
+    for path in PORT_FILES:
+        if path.relative_to(PORT).parts[0] not in ("models", "kernels"):
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad += [f"{path.relative_to(PORT)}:{node.lineno} {mod}"
+                    for mod in mods
+                    if (mod + ".").startswith("repro_torch.launch.")]
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_no_jax_or_repro():
     """The smoke runs where jax is absent; it imports only the port."""
     _assert_no_jax_or_repro_import(PORT.parents[1] / "chip_smoke.py")

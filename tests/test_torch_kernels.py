@@ -1125,12 +1125,16 @@ def test_cuda_selective_scan_equals_its_plain_version():
 def test_cuda_zamba2_serves_the_loops_tokens():
     """The reduced zamba2 over ``mamba, mamba, sattn, mamba`` in fp32 on
     the card: prefill and decode through the scan kernel give the greedy
-    tokens of the same no-grad run through the loop (``scan_steps``)."""
+    tokens of the same no-grad run through the loop (``scan_steps``).
+    The kernel's runs are counted in a device trace: a decode step that
+    replays a CUDA graph runs it without a wrapper launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
     if _build.find_nvcc() is None:
         pytest.skip("needs nvcc to build csrc/scan.cu: not found")
     import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
@@ -1152,10 +1156,16 @@ def test_cuda_zamba2_serves_the_loops_tokens():
 
     ops.reset_launch_counts()
     with torch.no_grad():
-        kernel = tokens()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kernel = tokens()
+            torch.cuda.synchronize()
         launched = ops.launch_counts()["selective_scan"]
         with S.scan_steps(10 ** 6):
             loop = tokens()
-    assert launched == pattern.count("mamba") * max_new * n_req // batch
+    runs = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() != DeviceType.CPU
+               and "selective_scan_kernel" in e.name())
+    assert runs == pattern.count("mamba") * max_new * n_req // batch
     assert ops.launch_counts()["selective_scan"] == launched
     assert kernel == loop

@@ -236,7 +236,7 @@ def test_placements_of_a_tuple_entry_shard_one_dim_on_each_axis():
             Shard(0), Shard(0), Shard(2))
         assert SH.placements((None, ("data", "model")), mesh) == (
             Replicate(), Shard(1), Shard(1))
-        assert SH._fit(mesh, (8, 48), (("pod", "data"), "model")) == (
+        assert SH.fit_spec(mesh, (8, 48), (("pod", "data"), "model")) == (
             None, "model")
 
 
