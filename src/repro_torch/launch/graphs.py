@@ -9,8 +9,8 @@ conditions); every other step runs eagerly, as on the CPU.
 
 One graph is held in the process at a time.  It is made at the first
 step on caches that it does not hold, and those caches become its
-buffers: prefill and every step write the keys, values and Mamba2
-states in place, so a batch keeps its buffers from prefill to its last
+buffers: prefill and every step write the keys, values, MLA latents and
+Mamba2 states in place, so a batch keeps its buffers from prefill to its last
 token.  Its first ``WARMUP_STEPS`` steps run eagerly (they load every
 kernel and library handle the step uses, which a capture cannot do);
 the next step is captured, under a private spans recording, and
@@ -24,12 +24,12 @@ they lie; it holds them weakly and goes when they do.
 Counters (:mod:`repro_torch.spans`), while spans record: a step counts
 ``graph.replays``, 1 a replay and 0 an eager step, beside what its code
 counts; a replay adds what the captured step counted (``attn.cast_bytes``,
-``ssm.scan_steps``, ``ssm.scan_kernel_steps``); a capture counts
-``graph.captures`` 1.  A replayed step has no ``block.*``, ``ssm.scan``
-or ``model.head`` spans: its host runs none of that code.  The kernels'
-launch counters (``ops.launch_counts``) count the wrappers' launches, the
-eager steps' and the capture's; a replay runs no wrapper, and only a
-device trace sees the kernels it runs.
+``mla.cache_bytes``, ``ssm.scan_steps``, ``ssm.scan_kernel_steps``); a
+capture counts ``graph.captures`` 1.  A replayed step has no ``block.*``,
+``mla``, ``moe``, ``ssm.scan`` or ``model.head`` spans: its host runs none
+of that code.  The kernels' launch counters (``ops.launch_counts``) count
+the wrappers' launches, the eager steps' and the capture's; a replay runs
+no wrapper, and only a device trace sees the kernels it runs.
 """
 from __future__ import annotations
 
@@ -55,9 +55,11 @@ def engages(cfg: ArchConfig, device: torch.device | str) -> bool:
 
 
 def _max_seq(caches) -> Optional[int]:
+    """The cache length of the first KV or MLA latent cache, if any."""
     for c in caches:
-        if "k" in c:
-            return c["k"].shape[1]
+        for key in ("k", "latent"):
+            if key in c:
+                return c[key].shape[1]
     return None
 
 

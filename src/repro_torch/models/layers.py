@@ -571,18 +571,21 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     by RoPE, or by YaRN where the config scales it (``mla_rope``,
     ``mla_softmax_scale``).
 
-    ``cache``: {"latent" [B,Smax,r], "k_rope" [B,Smax,rd], "index" int},
-    written in place at ``index``.  On plain tensors a cache takes the
-    serving paths: a prompt written at index 0 attends through the
+    ``cache``: {"latent" [B,Smax,r], "k_rope" [B,Smax,rd], "index" int
+    or 0-d int64 tensor on the cache's device}, written in place at
+    ``index``.  On plain tensors a cache takes the serving paths: a
+    one-token step, or any step at a tensor index, goes through the
+    absorbed form (``_mla_absorbed``), which reads the whole latent cache
+    under the causal mask, up-projects nothing of its length and reads
+    no index on the host, so that a CUDA graph of it replays at any
+    position; a prompt written at int index 0 attends through the
     flash-attention kernel when ``flash`` and the kernel is built for its
     widths (``_mla_prefill``: q·k at depth dh + rd, v of width dh;
-    DeepSeek-V2's 192 and 128, on the card in bf16), any other step
-    through the absorbed form
-    (``_mla_absorbed``), which reads the latent cache's filled slots and
-    up-projects nothing of its length.  Otherwise (no cache, ``flash``
-    off, or DTensors) the JAX package's product: keys and values
-    up-projected per head from every latent row, attention over every
-    cache slot under the causal mask, and without a cache in q-row
+    DeepSeek-V2's 192 and 128, on the card in bf16); a longer step at a
+    later int index, through the absorbed form too.  Otherwise (no cache,
+    ``flash`` off, or DTensors) the JAX package's product: keys and
+    values up-projected per head from every latent row, attention over
+    every cache slot under the causal mask, and without a cache in q-row
     blocks (``_q_blocks``)."""
     with spans.span("mla"):
         return _mla_attention(p, cfg, x, positions, cache, flash)
@@ -617,23 +620,24 @@ def _mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
         _write_at(cl, idx, latent)
         _write_at(cr, idx, k_rope[:, :, 0, :])
         new_cache = {"latent": cl, "k_rope": cr, "index": idx + s}
-        if not isinstance(x, DTensor) and (
-                idx > 0 or s == 1 or flash and ops.flash_attention_takes(
-                    dh + rd, dh, x.dtype, x.device)):
-            item = cl.element_size()
-            if idx == 0 and s > 1:
-                with spans.span("mla.prefill_attn"):
-                    out = _mla_prefill(p, q_nope, q_rope, latent,
-                                       k_rope[:, :, 0, :], scale)
-                # the per-head keys and values it makes of the prompt
-                spans.count("mla.cache_bytes", b * s * h * (2 * dh + rd)
-                            * item)
-            else:
-                with spans.span("mla.decode_attn"):
-                    out = _mla_absorbed(p, q_nope, q_rope, cl, cr, idx,
-                                        scale)
-                spans.count("mla.cache_bytes", b * (idx + s) * (r + rd)
-                            * item)
+        plain = not isinstance(x, DTensor)
+        item = cl.element_size()
+        # a one-token step, or any at a tensor index, is decided before
+        # the index is looked at (``model.decode_step``)
+        if plain and (s == 1 or not isinstance(idx, int) or idx > 0):
+            with spans.span("mla.decode_attn"):
+                out = _mla_absorbed(p, q_nope, q_rope, cl, cr, idx, scale)
+            # the whole latent and rope cache, at any index
+            spans.count("mla.cache_bytes", b * cl.shape[1] * (r + rd)
+                        * item)
+            return merge_heads(out) @ p["wo"], new_cache
+        if plain and flash and ops.flash_attention_takes(
+                dh + rd, dh, x.dtype, x.device):
+            with spans.span("mla.prefill_attn"):
+                out = _mla_prefill(p, q_nope, q_rope, latent,
+                                   k_rope[:, :, 0, :], scale)
+            # the per-head keys and values it makes of the prompt
+            spans.count("mla.cache_bytes", b * s * h * (2 * dh + rd) * item)
             return merge_heads(out) @ p["wo"], new_cache
         latent_all, k_rope_flat = cl, cr
         q_base = idx
@@ -695,29 +699,28 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mla_absorbed(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
-                  cl: torch.Tensor, cr: torch.Tensor, idx: int,
+                  cl: torch.Tensor, cr: torch.Tensor, idx,
                   scale: float) -> torch.Tensor:
     """q ``[B,S,H,dh]`` (+ rope part ``[B,S,H,rd]``) at positions
-    ``idx..`` over the cache's filled slots ``[0, idx + S)`` in the
+    ``idx..`` (an int or a 0-d tensor on q's device, never read on the
+    host) over the whole cache ``cl``, ``cr`` ``[B,Smax,·]`` in the
     absorbed form: ``w_uk`` folded into q (``q_lat = q_nope w_ukᵀ`` per
-    head, ``[B,H,S,r]``), scores ``q_lat·latent + q_rope·k_rope``, the
-    causal mask over the new rows, ``o_lat = p·latent`` of the working
-    type, and ``w_uv`` applied to ``o_lat`` per head; returns
-    ``[B,S,H,dh]`` in q's type."""
+    head, ``[B,H,S,r]``), scores ``q_lat·latent + q_rope·k_rope`` summed
+    in fp32, the causal mask (the slots past the new rows weigh exactly
+    0), ``o_lat = p·latent`` of the working type, and ``w_uv`` applied to
+    ``o_lat`` per head; returns ``[B,S,H,dh]`` in q's type."""
     b, s, h, dh = q_nope.shape
-    r, rd = cl.shape[-1], cr.shape[-1]
-    n = idx + s
+    n, r, rd = cl.shape[1], cl.shape[-1], cr.shape[-1]
     w_uk = p["w_uk"].view(r, h, dh)
     q_lat = torch.einsum("bshd,rhd->bhsr", q_nope, w_uk).reshape(b, h * s,
                                                                   r)
     q_r = q_rope.transpose(1, 2).reshape(b, h * s, rd)
-    lat, k_r = cl[:, :n], cr[:, :n]
-    scores = (_bmm_f32(q_r, k_r.transpose(1, 2))
-              + _bmm_f32(q_lat, lat.transpose(1, 2)))
+    scores = (_bmm_f32(q_r, cr.transpose(1, 2))
+              + _bmm_f32(q_lat, cl.transpose(1, 2)))
     lg = scores.view(b, h, s, n) * scale
-    mask = _causal_mask(idx, s, n, lg.device) if s > 1 else None
-    probs = _softmax(lg, mask).to(q_nope.dtype).view(b, h * s, n)
-    o_lat = torch.bmm(probs, lat).view(b, h, s, r)
+    probs = _softmax(lg, _causal_mask(idx, s, n, lg.device)).to(
+        q_nope.dtype).view(b, h * s, n)
+    o_lat = torch.bmm(probs, cl).view(b, h, s, r)
     return torch.einsum("bhsr,rhd->bshd", o_lat, p["w_uv"].view(r, h, dh))
 
 

@@ -21,8 +21,8 @@ to every attention (self, shared, cross and encoder): the flash-attention
 kernel for serving, the JAX package's chunked einsum path for
 :func:`lm_loss`, which autograd differentiates (the kernel, like the JAX
 package's, has no backward).  MLA's prompt goes through the kernel too
-when serving; its decode steps take the absorbed form over the latent
-cache (``models/layers.py`` ``mla_attention``).
+when serving; its decode steps take the absorbed form over the whole
+latent cache (``models/layers.py`` ``mla_attention``).
 
 On DTensors (the dry-run of :mod:`repro_torch.launch.dryrun`) the
 embedding lookup, the logits and the loss follow the sharding hints of
@@ -193,7 +193,8 @@ def _attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 # the block kinds whose decode step a CUDA graph may capture (``decode_step``;
-# an xLSTM block returns fresh states)
+# an xLSTM block returns fresh states); ``moe`` too where the config routes
+# over held experts in bf16 (``decode_capturable``)
 CAPTURABLE_KINDS = ("attn", "sattn", "mamba")
 
 
@@ -444,10 +445,16 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     Where :func:`decode_capturable` holds, a step at a tensor index reads
     no host value and leaves every cache and state in the given tensors,
     so that a CUDA graph of it replays at any position: every block is of
-    ``CAPTURABLE_KINDS`` (GQA writes its cache at the index on the
-    device, Mamba2 its state over the old one), no MLA (its decode slices
-    the filled cache on the host), no mesh bound (DTensor caches are
-    written by slices), and no ``scan_steps`` limit (Mamba2's loop
+    ``CAPTURABLE_KINDS`` (GQA and MLA write their caches at the index on
+    the device and attend over the whole cache under the mask, Mamba2
+    writes its state over the old one), or ``moe`` where the config
+    routes over held experts in bf16 (``cfg.held_experts``:
+    ``moe_held_apply`` counts and sorts its pairs on the device and runs
+    grouped GEMMs over device offsets; in another type torch's
+    ``_grouped_mm`` copies the offsets to the host, and the capacity MoE
+    is not held to that), no mesh bound
+    (DTensor caches are written by slices, and MLA on DTensors takes the
+    up-projecting path), and no ``scan_steps`` limit (Mamba2's loop
     returns fresh states)."""
     x = embed(cfg, params, token[:, None])
     b = x.shape[0]
@@ -463,7 +470,8 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
 def decode_capturable(cfg: ArchConfig) -> bool:
     """Whether ``decode_step`` of ``cfg`` can be captured as a CUDA graph,
     on the conditions its docstring states."""
-    return (all(kind in CAPTURABLE_KINDS for kind in cfg.pattern)
-            and not cfg.mla
+    held = cfg.held_experts and cfg.dtype == "bfloat16"
+    kinds = CAPTURABLE_KINDS + (("moe",) if held else ())
+    return (all(kind in kinds for kind in cfg.pattern)
             and not L.data_axes() and L.model_axis() is None
             and S.scan_limit() is None)

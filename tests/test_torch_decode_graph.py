@@ -4,11 +4,13 @@ device tensor, never read on the host, and Mamba2 states that land on
 the given buffers.
 
 On the CPU: a tensor index steps exactly as an int; a decode step reads
-no tensor index on the host; Mamba2's prefill and decode steps write
-their states over the given ones; the engagement rule over
-``configs.ARCHS``; the eager step counts no replay; a graph's eager
-steps, the batches it hands its buffers to, and its end with the
-parameters.  The ``cuda`` test needs the card:
+no tensor index on the host (GQA, Mamba2, and MLA with a held share of a
+group-limited MoE, ``test_torch_deepseek_share.py``'s DeepSeek-V2 kinds);
+Mamba2's prefill and decode steps write their states over the given ones;
+the engagement rule over ``configs.ARCHS`` and the held-expert MLA
+config; the eager step counts no replay; a graph's eager steps, the
+batches it hands its buffers to (of the graph's cache length alone), and
+its end with the parameters.  The ``cuda`` tests need the card:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
       tests/test_torch_decode_graph.py
@@ -25,15 +27,25 @@ from repro_torch.launch.steps import build_serve_step  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
+from repro_torch.models.config import ArchConfig  # noqa: E402
+from test_torch_deepseek_share import ARCH as DS_ARCH  # noqa: E402
 
 PROMPT, STEPS = 6, 5
 # the configs whose decode step replays a graph on the card, by their
-# block kinds: attn, sattn and mamba only, and no MLA
+# block kinds: attn, sattn and mamba only (no catalog config routes over
+# held experts: dbrx-132b and deepseek-v2-236b take the capacity MoE)
 ENGAGE = {"minicpm-2b", "tinyllama-1.1b", "qwen3-4b", "stablelm-1.6b",
           "zamba2-1.2b", "qwen2-vl-2b"}
+# DeepSeek-V2's kinds at CPU widths (MLA with YaRN, a dense layer, then
+# group-limited MoE layers), holding 8 of the 32 routed experts from the
+# 8th on, as one device of an expert-parallel layer does
+HELD_MLA = "ds-held"
 
 
 def reduced(arch: str, dtype: str = "bfloat16"):
+    if arch == HELD_MLA:
+        return ArchConfig(**dict(DS_ARCH, n_experts=8, expert_offset=8,
+                                 dtype=dtype))
     cfg = configs.get(arch).reduced()
     if arch == "zamba2-1.2b":      # the shared attention block runs
         cfg = dataclasses.replace(
@@ -72,7 +84,7 @@ class NoHostRead(torch.Tensor):
     __bool__ = __int__ = __index__ = __float__ = _read
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b", HELD_MLA])
 def test_a_tensor_index_steps_as_an_int(arch):
     """Logits, caches and states equal bit for bit, step after step."""
     cfg = reduced(arch)
@@ -93,7 +105,7 @@ def test_a_tensor_index_steps_as_an_int(arch):
             tok_a, tok_b = torch.argmax(la, -1), torch.argmax(lb, -1)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b", HELD_MLA])
 def test_a_decode_step_never_reads_the_index_on_the_host(arch):
     cfg = reduced(arch)
     params = model(cfg)
@@ -174,7 +186,7 @@ def test_a_mamba_prefill_writes_its_state_in_place():
 @pytest.mark.parametrize("arch", configs.ARCHS + configs.PAPER_ARCHS)
 def test_engagement_follows_the_block_kinds(arch):
     cfg = configs.get(arch)
-    kinds_only = set(cfg.pattern) <= set(M.CAPTURABLE_KINDS) and not cfg.mla
+    kinds_only = set(cfg.pattern) <= set(M.CAPTURABLE_KINDS)
     assert kinds_only == (arch in ENGAGE | {"llama2-7b"})
     assert graphs.engages(cfg, "cuda") == kinds_only
     assert graphs.engages(cfg.reduced(), torch.device("cuda", 0)) == \
@@ -187,6 +199,33 @@ def test_engagement_follows_the_block_kinds(arch):
         L.set_mesh_axes((), None)
     with S.scan_steps(8):          # Mamba2 through its loop
         assert not graphs.engages(cfg, "cuda")
+
+
+def test_a_held_expert_mla_config_engages_and_a_capacity_moe_does_not():
+    """MLA, and ``moe`` blocks that route over held experts in bf16 (no
+    capacity, grouped GEMMs over device offsets), are admitted; the same
+    config in fp32 (where torch's grouped GEMM copies its offsets to the
+    host), or with the capacity MoE, and the catalog's dbrx-132b and
+    deepseek-v2-236b (capacity MoE), step eagerly, as does any config
+    under a mesh."""
+    cfg = reduced(HELD_MLA)
+    assert cfg.mla and cfg.held_experts and "moe" in cfg.pattern
+    assert M.decode_capturable(cfg)
+    assert graphs.engages(cfg, "cuda") and not graphs.engages(cfg, "cpu")
+    assert not graphs.engages(reduced(HELD_MLA, "float32"), "cuda")
+    capacity = dataclasses.replace(cfg, n_experts=32, router_experts=0,
+                                   expert_offset=0)
+    assert not capacity.held_experts
+    assert not graphs.engages(capacity, "cuda")
+    for arch in ("dbrx-132b", "deepseek-v2-236b"):
+        for c in (configs.get(arch), configs.get(arch).reduced()):
+            assert "moe" in c.pattern and not c.held_experts
+            assert not graphs.engages(c, "cuda")
+    L.set_mesh_axes(("data",), "model")
+    try:
+        assert not graphs.engages(cfg, "cuda")
+    finally:
+        L.set_mesh_axes((), None)
 
 
 def test_an_eager_step_counts_no_replay():
@@ -241,9 +280,13 @@ def test_a_graph_runs_its_first_steps_eagerly_on_the_given_caches(
     assert not graph.serves(cfg, model(cfg), caches)
 
 
+@pytest.mark.parametrize("arch, key", [("stablelm-1.6b", "k"),
+                                       (HELD_MLA, "latent")])
 def test_a_batch_that_fits_the_held_graph_gets_its_buffers_zeroed(
-        monkeypatch):
-    cfg = reduced("stablelm-1.6b", "float32")
+        arch, key, monkeypatch):
+    """Of the graph's batch size, cache length (KV or MLA latent) and
+    parameters alone."""
+    cfg = reduced(arch, "float32")
     params = model(cfg)
     with torch.no_grad():
         nxt, caches = prefilled(cfg, params)
@@ -252,7 +295,7 @@ def test_a_batch_that_fits_the_held_graph_gets_its_buffers_zeroed(
     try:
         # on the CPU no graph engages: every batch gets fresh caches
         fresh = graphs.init_cache(cfg, params, 2, PROMPT + STEPS, "cpu")
-        assert not any(f["k"] is c["k"] for f, c in zip(fresh, caches))
+        assert not any(f[key] is c[key] for f, c in zip(fresh, caches))
         monkeypatch.setattr(graphs, "engages", lambda cfg, device: True)
         got = graphs.init_cache(cfg, params, 2, PROMPT + STEPS, "cpu")
         assert graph.serves(cfg, params, got)
@@ -265,7 +308,7 @@ def test_a_batch_that_fits_the_held_graph_gets_its_buffers_zeroed(
                                   (2, PROMPT + STEPS + 1, params),
                                   (2, PROMPT + STEPS, model(cfg))):
             mine = graphs.init_cache(cfg, other, batch, seq, "cpu")
-            assert not any(m["k"] is c["k"] for m, c in zip(mine, caches))
+            assert not any(m[key] is c[key] for m, c in zip(mine, caches))
         # the graph goes with its parameters
         del params
         assert graphs._HELD[0] is None
@@ -362,5 +405,63 @@ def test_graphed_serving_is_eager_serving(dtype, monkeypatch):
     assert eager_counts["ssm.scan_steps"] == \
         blocks * batches * (PROMPT + STEPS - 1)
     # the graph goes with the parameters
+    del params
+    assert graphs._HELD[0] is None
+
+
+@pytest.mark.cuda
+def test_graphed_serving_is_eager_serving_with_mla_and_held_experts(
+        monkeypatch):
+    """On the card, at the held-expert MLA arch in bf16 with DeepSeek-V2's
+    head widths (so that the prompt goes through K6 at 192/128, as in the
+    serving cell): a replayed step gives the eager step's logits and
+    tokens, bit for bit, counts what the eager step counts (the whole
+    latent cache a step in ``mla.cache_bytes``), and two
+    ``serve_requests`` calls of one shape capture once, on one set of
+    buffers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    from repro_torch.kernels import _build
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc to build csrc/attention.cu: not found")
+    cfg = dataclasses.replace(reduced(HELD_MLA), d_head=128,
+                              rope_head_dim=64)
+    params = model(cfg, "cuda")
+    n = graphs.WARMUP_STEPS + 4
+    graphs._release()
+    with torch.no_grad():
+        nxt, caches = prefilled(cfg, params, device="cuda", steps=n + 1)
+        graphed = _steps(cfg, params, nxt, clone(caches), n)
+        assert graphs._HELD[0].graph is not None
+        with monkeypatch.context() as m:
+            _eager(m)
+            eager = _steps(cfg, params, nxt, clone(caches), n)
+    for g, e in zip(graphed, eager):
+        assert torch.equal(g, e)
+
+    graphs._release()
+    tokens, counts, _ = _served(cfg, params, seed=1)
+    held = graphs._HELD[0]
+    again, counts2, _ = _served(cfg, params, seed=1)
+    assert graphs._HELD[0] is held
+    with monkeypatch.context() as m:
+        _eager(m)
+        want, eager_counts, _ = _served(cfg, params, seed=1)
+    assert tokens == again == want
+    batches, b, steps = 2, 2, STEPS - 1
+    assert counts.pop("graph.captures") == 1
+    assert "graph.captures" not in counts2
+    assert counts.pop("graph.replays") == batches * steps \
+        - graphs.WARMUP_STEPS
+    assert counts2.pop("graph.replays") == batches * steps
+    assert eager_counts.pop("graph.replays") == 0
+    assert counts == counts2 == eager_counts
+    # a prefill: the prompt's keys and values (K6); a step: the whole cache
+    r, rd, dh, h = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.head_dim, \
+        cfg.n_heads
+    item, layers = 2, len(cfg.pattern)
+    assert eager_counts["mla.cache_bytes"] == layers * batches * item * (
+        b * PROMPT * h * (2 * dh + rd)
+        + steps * b * (PROMPT + STEPS) * (r + rd))
     del params
     assert graphs._HELD[0] is None

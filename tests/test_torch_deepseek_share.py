@@ -99,14 +99,17 @@ def test_held_shares_add_up_to_the_uncut_layer():
     torch.testing.assert_close(total, whole, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("index", ["int", "tensor"])
 @pytest.mark.parametrize("widths", [(32, 16), (128, 64)],
                          ids=["reduced", "published_heads"])
-def test_prefill_then_absorbed_decode_gives_the_references_logits(widths):
+def test_prefill_then_absorbed_decode_gives_the_references_logits(widths,
+                                                                  index):
     """The port's serving path (prefill of 10 tokens, then 6 decode steps
-    through the latent cache in the absorbed form) gives, in fp32, the
-    logits of the reference's full forward at every served position; at
-    the published head widths (q·k 192, v 128) the prefill goes through
-    the flash-attention kernel's plain version."""
+    through the whole latent cache in the absorbed form, at an int
+    position or at a 0-d tensor one, as a CUDA graph steps) gives, in
+    fp32, the logits of the reference's full forward at every served
+    position; at the published head widths (q·k 192, v 128) the prefill
+    goes through the flash-attention kernel's plain version."""
     dh, rd = widths
     arch = dict(ARCH, d_head=dh, rope_head_dim=rd)
     cfg = ArchConfig(**arch)
@@ -120,8 +123,9 @@ def test_prefill_then_absorbed_decode_gives_the_references_logits(widths):
         logits, caches = M.prefill(cfg, params, tokens[:, :prompt], caches)
         got = [logits[:, 0]]
         for i in range(steps - 1):
+            at = prompt + i if index == "int" else torch.tensor(prompt + i)
             logits, caches = M.decode_step(cfg, params, tokens[:, prompt + i],
-                                           prompt + i, caches)
+                                           at, caches)
             got.append(logits)
         want = ref.position_logits(params, tokens,
                                    torch.arange(prompt - 1, prompt + steps - 1),
@@ -132,9 +136,11 @@ def test_prefill_then_absorbed_decode_gives_the_references_logits(widths):
 
 
 def test_the_decode_step_reads_only_the_latent_cache():
-    """A decode step's MLA counts the latent and rope cache's filled slots
-    it reads, and makes no key or value of the cache's length; a prefill
-    counts the keys and values it makes of the prompt."""
+    """A decode step's MLA counts the latent and rope cache it reads, all
+    of its slots at any index (the absorbed form attends over the whole
+    cache under the mask, so that it reads no index on the host), and
+    makes no key or value of the cache's length; a prefill counts the keys
+    and values it makes of the prompt."""
     from repro_torch import spans
     arch = dict(ARCH, d_head=128, rope_head_dim=64)
     cfg = ArchConfig(**arch)
@@ -151,7 +157,7 @@ def test_the_decode_step_reads_only_the_latent_cache():
     counts = {(by_name[sid], name): v for (sid, name), v in got.items()}
     layers, item = 3, 4
     assert counts[("serve.decode_step", "mla.cache_bytes")] == \
-        layers * 2 * 9 * (64 + 64) * item
+        layers * 2 * 12 * (64 + 64) * item
     assert counts[("serve.prefill", "mla.cache_bytes")] == \
         layers * 2 * 8 * 4 * (2 * 128 + 64) * item
     assert {"moe", "moe.route", "moe.experts", "moe.shared", "mla",
